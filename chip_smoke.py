@@ -7,18 +7,23 @@
 
 Phases; the first failure exits non-zero and prints no result:
 
- 1. device: the card's name and power limit (nvidia-smi); build both CUDA
-    kernels from `src/repro_torch/kernels/csrc/` with nvcc (timed).
- 2. kernels: each kernel against its plain PyTorch version on the card, on the
-    reference's test shapes and the Llama3-8B main-path shapes, in f32 (every
-    element within 2e-5) and bf16 (every element within 1e-5 + 1.6e-2 times
-    the plain value); at the main-path shapes in bf16 the kernel, the plain
-    version and one `F.scaled_dot_product_attention` call (a yardstick the
-    port never calls) are timed with CUDA events, beside the least time the
-    card could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s,
-    the larger).
+ 1. device: the card's name and power limit (nvidia-smi); build the CUDA
+    sources of `src/repro_torch/kernels/csrc/` with nvcc, one process each,
+    in parallel (timed).
+ 2. kernels: each of the three kernels (prefill, decode, speculative verify)
+    against its plain PyTorch version on the card, on the reference's test
+    shapes and the Llama3-8B main-path shapes, in f32 (every element within
+    2e-5) and bf16 (every element within 1e-5 + 1.6e-2 times the plain
+    value); the verify kernel's column 0 also against the decode kernel at
+    kv_len + 1 (bit-equality printed). At the main-path shapes in bf16 the
+    kernel, the plain version and one `F.scaled_dot_product_attention` call
+    (a yardstick the port never calls) are timed with CUDA events, beside
+    the least time the card could take (bytes over 3.35 TB/s or operations
+    over 989 TFLOP/s, the larger).
  3. model: the tiny Llama3-8B config in f32, prefill logits and a ragged
-    decode step on the card against the same functions on the CPU (2e-4).
+    decode step on the card against the same functions on the CPU (2e-4),
+    and one speculative-decoding run on the card whose tokens must equal
+    the CPU's.
  4. deployment: `repro_torch.launch.serve.build` at Llama3-8B's published
     width in bf16 with random weights, and its TTFT profile.
  5. preemption: a 2048-token prompt at operator granularity, suspended at
@@ -31,6 +36,18 @@ Phases; the first failure exits non-zero and prints no result:
  7. time breakdown (measurement, no check): `torch.profiler` over one
     4096-token prefill and one batched decode step, device time by kernel
     and the device's idle share.
+ 8. speculative decoding at full width: four prefilled handoffs decode 16
+    tokens each with the plain batched instance (the reference
+    trajectories), then with `spec_decode=True, draft_k=4` under an oracle
+    drafter (accepts everything), an adversarial one (accepts nothing and
+    throttles) and the default n-gram drafter. Counters are zeroed before
+    and read after each run: the verify kernel must launch, no plain
+    version may run, the oracle must accept drafts, and every spec
+    trajectory must equal the plain one unless the first differing token
+    is an explained near-tie: both runs are repeated with their logits
+    recorded, and the plain step's top-2 logit gap there is no larger than
+    the verify column's largest logit difference from it. Then `build(..., spec_decode=True)` serves a short run of the
+    launcher's mix and the proxy's `spec` report is printed.
 
 The line before the last holds the kernels' record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -89,7 +106,21 @@ LLAMA_DECODE = [
     ("B1len1", [1]),
     ("B4ragged", [1, 1000, 2600, 4096]),
 ]
-MAIN_PREFILL, MAIN_DECODE = "chunk512@3584", "B4ragged"
+VERIFY_CASES = [
+    # B, S, T, H, K, hd, per-row kv_len (S 1/2/5/8, Qg 1/4/8, T % 32 != 0)
+    (3, 5, 300, 8, 2, 64, [0, 37, 295]),
+    (2, 1, 100, 8, 8, 128, [1, 99]),
+    (2, 2, 77, 8, 1, 64, [0, 75]),
+    (1, 5, 70, 64, 8, 128, [65]),
+    (2, 5, 1100, 32, 8, 128, [1, 1000]),
+    (4, 8, 129, 16, 2, 64, [0, 1, 64, 121]),    # 64 rows, the kernel's cap
+    (2, 5, 45, 4, 2, 32, [0, 40]),
+    (1, 5, 33, 4, 2, 16, [28]),
+]
+# label, per-row kv_len (B 4, S 5 = draft_k 4 + 1)
+LLAMA_VERIFY = [("B4S5ragged", [1, 1000, 2600, 4091])]
+MAIN_PREFILL, MAIN_DECODE, MAIN_VERIFY = \
+    "chunk512@3584", "B4ragged", "B4S5ragged"
 
 
 def fail(msg: str) -> None:
@@ -177,6 +208,182 @@ def decode_work(H, K, hd, lens, es):
     return ops_count, nbytes
 
 
+def verify_work(S, T, H, K, hd, lens, es):
+    """Query s of row b sees keys [0, min(kv_len + s + 1, T)); q and o are
+    read and written once, and each row's keys up to kv_len + S once."""
+    pairs = sum(min(n + s + 1, T) for n in lens for s in range(S))
+    keys = sum(min(n + S, T) for n in lens)
+    ops_count = 4.0 * hd * H * pairs
+    nbytes = es * (2 * len(lens) * S * H * hd + 2 * keys * K * hd)
+    return ops_count, nbytes
+
+
+def run_decode(port, params, cfg, handoffs, n_tokens, draft=None, **kw):
+    """Decode `n_tokens` after each (first token, cache) handoff in one
+    `DecodeInstance` (slot cap = number of handoffs). `draft(i, history, k)`
+    drafts for handoff i. Every stream is submitted under the instance's
+    condition variable, so all are admitted before the first step: each
+    step then runs at the full batch, and a run's schedule and shapes do not
+    depend on thread timing. Returns the instance and each stream's output
+    record (first token, then the decoded tokens)."""
+    reqs = [port.Request(num_tokens=int(c["pos"]), slo=100.0,
+                         arrival=time.monotonic(), output_tokens=n_tokens,
+                         tbt_slo=100.0) for _, c in handoffs]
+    if draft is not None:
+        index = {r.rid: i for i, r in enumerate(reqs)}
+        kw["draft_fn"] = lambda rid, hist, k: draft(index[rid], hist, k)
+    inst = port.DecodeInstance(params, cfg, decode_tokens=n_tokens,
+                               decode_max_batch=len(handoffs), **kw)
+    try:
+        with inst._cv:
+            for r, (first, cache) in zip(reqs, handoffs):
+                inst.submit(port.DecodeJob(request=r, cache=dict(cache),
+                                           first_token=first))
+        drained = inst.drain(600.0)
+    finally:
+        inst.shutdown()
+    if not inst.healthy:
+        fail(f"decode worker failed: {inst.last_error!r}")
+    if not drained:
+        fail("decode instance did not drain in 600 s")
+    return inst, [inst.outputs[r.rid] for r in reqs]
+
+
+def oracle_drafter(trajectories):
+    """Drafts the reference trajectory's next tokens: accepts everything."""
+    def draft(i, history, k):
+        done = len(history)                 # history starts at the first token
+        return trajectories[i][done:done + k]
+    return draft
+
+
+def adversarial_drafter(trajectories, vocab):
+    """Drafts one token that is never the greedy one: accepts nothing."""
+    def draft(i, history, k):
+        done = len(history)
+        seq = trajectories[i]
+        return [(seq[done] + 1) % vocab] if done < len(seq) else []
+    return draft
+
+
+def recorded_run(port, *args, **kw):
+    """`run_decode` with the batched steps' logits recorded: returns the
+    outputs and, per step, (kv_lens, logits (B, S, V)). The step functions
+    are wrapped in the decode instance's module for this run only."""
+    calls = []
+    saved = port.decode_step_ragged, port.decode_verify_ragged
+
+    def wrap(fn):
+        def step(params, cfg, tokens, k_g, v_g, kv_lens):
+            out = fn(params, cfg, tokens, k_g, v_g, kv_lens)
+            lg = out[0] if out[0].dim() == 3 else out[0][:, None]
+            calls.append((kv_lens.tolist(), lg))
+            return out
+        return step
+
+    port.decode_step_ragged, port.decode_verify_ragged = map(wrap, saved)
+    try:
+        _, out = run_decode(port, *args, **kw)
+    finally:
+        port.decode_step_ragged, port.decode_verify_ragged = saved
+    return out, calls
+
+
+def logits_of(calls, pos, t):
+    """Logits that produced output token t of the stream whose input token
+    t - 1 sits at absolute position `pos`: the last step (in time) with a
+    row whose span [start, start + S) holds pos, at column pos - start. The
+    streams' prompt lengths lie far apart, so only one stream's row can."""
+    for lens, lg in reversed(calls):
+        for row, start in enumerate(lens):
+            if start <= pos < start + lg.shape[1]:
+                return lg[row, pos - start].float()
+    raise LookupError(f"no step covered position {pos}")
+
+
+def spec_phase(torch, np, port, ops, dep, cfg):
+    """Phase 8 on the deployment's weights; returns the summed launch
+    counts of the spec runs."""
+    ex = dep.executor
+    rng = np.random.default_rng(8)
+    handoffs = []
+    # longest first: the pool is sized on the first stream admitted, so all
+    # four fit at once and every step runs at B = 4
+    for n in (3000, 2000, 1000, 300):
+        task = ex.start(rng.integers(0, cfg.vocab_size, (1, n)))
+        first = int(ex.run_all(task).argmax(-1)[0])
+        handoffs.append((first, {"k": task.state["k_cache"],
+                                 "v": task.state["v_cache"], "pos": n}))
+    n_tok = 16
+    plain_inst, plain = run_decode(port, dep.params, cfg, handoffs, n_tok)
+    steps = np.asarray(plain_inst.step_samples) * 1e3
+    print(f"plain: {plain_inst.steps} steps, step p50 {np.median(steps):.2f} "
+          f"ms, time per committed token {steps.sum() / n_tok:.2f} ms")
+    total = dict.fromkeys(ops.counts(), 0)
+    near_ties = []
+    for label, draft in (
+            ("oracle", oracle_drafter(plain)),
+            ("adversarial", adversarial_drafter(plain, cfg.vocab_size)),
+            ("ngram", None)):
+        kw = dict(draft=draft, spec_decode=True, draft_k=4)
+        ops.reset_counts()
+        inst, out = run_decode(port, dep.params, cfg, handoffs, n_tok, **kw)
+        counts = ops.counts()
+        for name, n in counts.items():
+            total[name] += n
+        steps = np.asarray(inst.step_samples) * 1e3
+        rate = inst.draft_accepted / max(inst.draft_proposed, 1)
+        print(f"{label}: spec_steps {inst.spec_steps} of {inst.steps} steps, "
+              f"accept rate {rate:.3f} ({inst.draft_accepted}/"
+              f"{inst.draft_proposed}), tokens per step "
+              f"{len(inst.tbt_samples) / inst.row_steps:.3f}, step p50 "
+              f"{np.median(steps):.2f} ms, time per committed token "
+              f"{steps.sum() / n_tok:.2f} ms")
+        print(f"  launches {json.dumps(counts)}", flush=True)
+        for name in ("chunked_prefill_attention_ref", "decode_attention_ref",
+                     "verify_attention_ref"):
+            if counts[name]:
+                fail(f"{label}: the plain {name} ran {counts[name]} times")
+        if label == "oracle" and inst.draft_accepted == 0:
+            fail("the oracle drafter's drafts were never accepted")
+        differ = [i for i in range(len(plain)) if out[i] != plain[i]]
+        if not differ:
+            continue
+        # near-tie check: rerun both with the steps' logits recorded (the
+        # schedules are deterministic) and compare, at the first differing
+        # token, the plain step's logits with the verify column's
+        plain_again, plain_calls = recorded_run(
+            port, dep.params, cfg, handoffs, n_tok)
+        out_again, spec_calls = recorded_run(
+            port, dep.params, cfg, handoffs, n_tok, **kw)
+        print(f"  {label}: streams {differ} differ from plain; recorded "
+              f"reruns reproduce both runs: "
+              f"{plain_again == plain and out_again == out}")
+        for i in differ:
+            t = next(j for j, (a, b) in enumerate(zip(plain[i], out[i]))
+                     if a != b)
+            pos = int(handoffs[i][1]["pos"]) + t - 1
+            lp = logits_of(plain_calls, pos, t)
+            lv = logits_of(spec_calls, pos, t)
+            top2 = lp.topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            diff = (lv - lp).abs().max().item()
+            print(f"  {label} stream {i} differs at token {t} (plain "
+                  f"{plain[i][t]}, spec {out[i][t]}): plain top-2 gap "
+                  f"{gap:.4e}, verify column vs plain step max |logit "
+                  f"diff| {diff:.4e}")
+            if gap > diff or int(lp.argmax()) != plain[i][t] \
+                    or int(lv.argmax()) != out[i][t]:
+                fail(f"{label} stream {i}: spec trajectory differs from the "
+                     f"plain one at token {t}, not an explained near-tie")
+            near_ties.append((label, i, t, gap, diff))
+        del plain_calls, spec_calls
+    if total["flash_verify_attention"] <= 0:
+        fail("flash_verify_attention was not launched in phase 8")
+    print(f"explained near-ties: {len(near_ties)} {near_ties}")
+    return total
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -193,13 +400,15 @@ def main() -> None:
     try:
         from repro_torch.configs.base import get_tiny_config
         from repro_torch.kernels import build, ops, ref
-        from repro_torch.kernels.decode_attn import flash_decode_attention
+        from repro_torch.kernels.decode_attn import (flash_decode_attention,
+                                                     flash_verify_attention)
         from repro_torch.kernels.flash_prefill import flash_prefill_attention
         from repro_torch.launch.serve import build as build_deployment
         from repro_torch.launch.serve import serve_trace
         from repro_torch.models.model import decode_step_ragged
         from repro_torch.models.segments import SegmentedPrefill
         from repro_torch.params import init_params
+        from repro_torch.serving import decode_instance as port
     except ImportError as exc:
         fail(f"the port is not importable from {ROOT / 'src'}: {exc}")
     import numpy as np
@@ -280,6 +489,20 @@ def main() -> None:
             check(f"decode {case}", dtype,
                   flash_decode_attention(q, k, v, lens_t),
                   ref.decode_attention_ref(q, k, v, kv_len=lens_t))
+        for case in VERIFY_CASES:
+            B, S, T, H, K, hd, lens = case
+            q = randn((B, S, H, hd), dtype)
+            k, v = randn((B, T, K, hd), dtype), randn((B, T, K, hd), dtype)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = flash_verify_attention(q, k, v, lens_t)
+            check(f"verify {case}", dtype, got,
+                  ref.verify_attention_ref(q, k, v, lens_t))
+            col0 = flash_decode_attention(q[:, 0].contiguous(), k, v,
+                                          lens_t + 1)
+            check("  column 0 vs flash_decode_attention", dtype, got[:, 0],
+                  col0)
+            print(f"  column 0 torch.equal decode at kv_len + 1: "
+                  f"{torch.equal(got[:, 0], col0)}", flush=True)
 
     H, K, hd, T = 32, 8, 128, 4096
     print("\nLlama3-8B main-path shapes (H 32, K 8, hd 128, T 4096); "
@@ -337,6 +560,39 @@ def main() -> None:
                 *decode_work(H, K, hd, lens, es))
             record[name] = row
             print(f"  {name}: {json.dumps(row)}", flush=True)
+        S = 5
+        for label, lens in LLAMA_VERIFY:
+            B = len(lens)
+            q = randn((B, S, H, hd), dtype)
+            k, v = randn((B, T, K, hd), dtype), randn((B, T, K, hd), dtype)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            name = f"flash_verify_attention {label}"
+            got = flash_verify_attention(q, k, v, lens_t)
+            err = check(name, dtype, got,
+                        ref.verify_attention_ref(q, k, v, lens_t))
+            col0 = flash_decode_attention(q[:, 0].contiguous(), k, v,
+                                          lens_t + 1)
+            print(f"  column 0 torch.equal decode at kv_len + 1: "
+                  f"{torch.equal(got[:, 0], col0)}", flush=True)
+            if dtype != torch.bfloat16:
+                continue
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+                v.transpose(1, 2)
+            qpos = lens_t[:, None, None] + torch.arange(S, device=dev)[:, None]
+            mask = (torch.arange(T, device=dev)[None, None, :]
+                    <= qpos)[:, None]                       # (B, 1, S, T)
+            row = dict(
+                ms=cuda_ms(torch, lambda: flash_verify_attention(
+                    q, k, v, lens_t)),
+                plain_ms=cuda_ms(torch, lambda: ref.verify_attention_ref(
+                    q, k, v, lens_t), iters=5),
+                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+                max_abs_err=err)
+            row["bound_ms"], row["bound_by"] = bound(
+                *verify_work(S, T, H, K, hd, lens, es))
+            record[name] = row
+            print(f"  {name}: {json.dumps(row)}", flush=True)
 
     # --- 3. tiny model, card against CPU -------------------------------------
     phase("3. tiny Llama3-8B config in f32: card against CPU")
@@ -360,7 +616,35 @@ def main() -> None:
         print(f"{name:<16} card vs cpu max_abs_err {err:.3e} tol 2e-4")
         if not err <= 2e-4:
             fail(f"tiny model {name}: card and CPU differ by {err}")
-    del p_cpu, p_gpu
+    # speculative decoding on the card, drafting the CPU's plain tokens
+    handoffs = {}
+    for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        ex = SegmentedPrefill(params, cfg, max_seq=128, chunk_tokens=32)
+        handoffs[where] = []
+        for i, n in enumerate((40, 72)):
+            task = ex.start(toks[i:i + 1, :n])
+            first = int(ex.run_all(task).argmax(-1)[0])
+            handoffs[where].append((first, {
+                "k": task.state["k_cache"], "v": task.state["v_cache"],
+                "pos": n}))
+    _, cpu_tokens = run_decode(port, p_cpu, cfg, handoffs["cpu"], 12,
+                               kv_block_size=16)
+    ops.reset_counts()
+    inst, gpu_tokens = run_decode(
+        port, p_gpu, cfg, handoffs["cuda"], 12,
+        draft=oracle_drafter(cpu_tokens), kv_block_size=16,
+        spec_decode=True, draft_k=4)
+    counts = ops.counts()
+    print(f"spec decode on the card (oracle drafts of the CPU tokens): "
+          f"{inst.spec_steps} verify steps, {inst.draft_accepted}/"
+          f"{inst.draft_proposed} drafts accepted; tokens equal to the "
+          f"CPU's: {gpu_tokens == cpu_tokens}; launches {json.dumps(counts)}")
+    if gpu_tokens != cpu_tokens:
+        fail(f"spec tokens on the card {gpu_tokens} differ from the CPU's "
+             f"{cpu_tokens}")
+    if counts["flash_verify_attention"] <= 0 or counts["verify_attention_ref"]:
+        fail("the tiny spec run did not go through the verify kernel alone")
+    del p_cpu, p_gpu, handoffs
     if args.quick:
         print(f"\n--quick: stopped after phase 3 "
               f"({time.monotonic() - t_start:.1f} s)")
@@ -476,8 +760,36 @@ def main() -> None:
         breakdown(torch, "decode_step_ragged B 4, kv_len 263..4095",
                   lambda: decode_step_ragged(dep.params, cfg, step_toks,
                                              k_g, v_g, lens_t))
+        del k_g, v_g
+
+        # --- 8. speculative decoding at full width ---------------------------
+        phase("8. speculative decoding: Llama3-8B, bf16, draft_k 4")
+        spec_counts = spec_phase(torch, np, port, ops, dep, cfg)
     finally:
         dep.shutdown()
+    del dep, ex
+    torch.cuda.empty_cache()
+    ops.reset_counts()
+    dep = build_deployment(full_config=True, max_seq=4096, chunk=512,
+                           decode_tokens=16, decode_max_batch=4, seed=0,
+                           device="cuda", spec_decode=True, draft_k=4)
+    try:
+        rep = serve_trace(dep, requests=4, seed=1)
+    finally:
+        dep.shutdown()
+    serve_counts = ops.counts()
+    print(f"serve through build(spec_decode=True): {rep['n_requests']} "
+          f"requests, decoded {rep['decoded']}, attainment "
+          f"{rep['slo_attainment']:.3f}; spec report {json.dumps(rep['spec'])}")
+    print(f"launches since reset: {json.dumps(serve_counts)}", flush=True)
+    if rep["decoded"] != rep["n_requests"]:
+        fail(f"spec serve decoded {rep['decoded']} of {rep['n_requests']}")
+    for name in ("chunked_prefill_attention_ref", "decode_attention_ref",
+                 "verify_attention_ref"):
+        if serve_counts[name]:
+            fail(f"the plain {name} ran on the spec serve path")
+    spec_counts["flash_verify_attention"] += \
+        serve_counts["flash_verify_attention"]
 
     kernels = []
     for name, route, src, replaces, main in (
@@ -486,10 +798,15 @@ def main() -> None:
              "src/repro/kernels/flash_prefill.py:105", MAIN_PREFILL),
             ("flash_decode_attention", "cuda",
              "src/repro_torch/kernels/csrc/decode_attn.cu",
-             "src/repro/kernels/decode_attn.py:207", MAIN_DECODE)):
+             "src/repro/kernels/decode_attn.py:207", MAIN_DECODE),
+            ("flash_verify_attention", "cuda",
+             "src/repro_torch/kernels/csrc/decode_attn.cu",
+             "src/repro/kernels/decode_attn.py:129", MAIN_VERIFY)):
         row = record[f"{name} {main}"]
+        launches = spec_counts[name] if name == "flash_verify_attention" \
+            else counts[name]
         kernels.append({"name": name, "route": route, "source": src,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

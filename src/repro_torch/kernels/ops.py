@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.kernels import counts as _counts
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attn import flash_decode_attention
+from repro_torch.kernels.decode_attn import (flash_decode_attention,
+                                             flash_verify_attention)
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
 
 
@@ -46,8 +47,17 @@ def decode_attention(q, k, v, kv_len) -> torch.Tensor:
     return ref.decode_attention_ref(q, k, v, kv_len=kv_len)
 
 
+def verify_attention(q, k, v, kv_len) -> torch.Tensor:
+    """q: (B,S,H,hd) at positions kv_len[b] + s; k/v: (B,T,K,hd) with the
+    draft K/V written; kv_len int or (B,) -> (B,S,H,hd)."""
+    if _route(q) == "cuda":
+        return flash_verify_attention(q, k, v, kv_len)
+    return ref.verify_attention_ref(q, k, v, kv_len)
+
+
 _COUNTED = ("flash_prefill_attention", "flash_decode_attention",
-            "chunked_prefill_attention_ref", "decode_attention_ref")
+            "flash_verify_attention", "chunked_prefill_attention_ref",
+            "decode_attention_ref", "verify_attention_ref")
 
 
 def counts() -> Dict[str, int]:

@@ -5,7 +5,9 @@ card. Each counts its calls (`kernels.counts`) so a run can show that the
 main path on the card never reached them.
 
 Counterparts: `chunked_prefill_attention_ref` and `decode_attention_ref` of
-src/repro/kernels/ref.py, `naive_attention` of src/repro/models/layers.py.
+src/repro/kernels/ref.py, `naive_attention` of src/repro/models/layers.py,
+and `verify_attention_ref`, the reference's own non-Pallas verify path
+(src/repro/kernels/ops.py:87-88).
 """
 from __future__ import annotations
 
@@ -88,6 +90,22 @@ def decode_attention_ref(
     counts.bump("decode_attention_ref")
     q_off = torch.as_tensor(kv_len, device=q.device).to(torch.int64) - 1
     return _attention_ref(q[:, None], k, v, q_offset=q_off, causal=True)[:, 0]
+
+
+def verify_attention_ref(
+    q: torch.Tensor,            # (B, S, H, hd) — S consecutive positions
+    k: torch.Tensor,            # (B, T, K, hd) with the draft K/V written
+    v: torch.Tensor,            # (B, T, K, hd)
+    kv_len,                     # committed length (query 0's position); int
+                                # or (B,)
+) -> torch.Tensor:
+    """Plain version of `flash_verify_attention`: (B, S, H, hd), query s of
+    row b attending to keys [0, kv_len[b] + s]. It is the reference's
+    `naive_attention(q, k, v, causal=True, q_offset=kv_len)`, computed in
+    f32: key 0 is always visible, so no row is fully masked and the -1e30
+    fill of `naive_attention` and the zero rows here never differ."""
+    counts.bump("verify_attention_ref")
+    return _attention_ref(q, k, v, q_offset=kv_len, causal=True)
 
 
 def naive_attention(

@@ -2,7 +2,8 @@
 one device and serve the reference launcher's request mix.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full-config \
-        --requests 6 --policy s-edf [--granularity op] [--chunk 512]
+        --requests 6 --policy s-edf [--granularity op] [--chunk 512] \
+        [--spec-decode --draft-k 4]
 
 `--full-config` serves Llama3-8B at its published width in bf16 with random
 weights drawn from `--seed`; without it, the tiny config. `--device`
@@ -72,10 +73,12 @@ def build(*, arch: str = "llama3_8b", full_config: bool = False,
           policy: str = "s-edf", granularity: str = "op", chunk: int = 512,
           batch_budget: int = 4096, max_seq: int = 4096,
           decode_tokens: int = 4, decode_max_batch: int = 4, seed: int = 0,
-          device="cuda", dtype: Optional[torch.dtype] = None) -> Deployment:
+          device="cuda", dtype: Optional[torch.dtype] = None,
+          spec_decode: bool = False, draft_k: int = 4) -> Deployment:
     """Random weights, the TTFT profile and predictor, one prefill and one
     decode instance behind a Proxy. ``dtype`` defaults to bf16 on the card
-    and f32 on the CPU."""
+    and f32 on the CPU. ``spec_decode``/``draft_k`` go to the decode
+    instance (the self-drafting n-gram drafter)."""
     dev = resolve_device(device)
     cfg = get_config(arch) if full_config else get_tiny_config(arch)
     if dtype is None:
@@ -94,7 +97,8 @@ def build(*, arch: str = "llama3_8b", full_config: bool = False,
                            executor=executor)
     dmb = decode_max_batch if supports_ragged_decode(cfg) else 1
     dec = DecodeInstance(params, cfg, decode_tokens=decode_tokens,
-                         decode_max_batch=dmb)
+                         decode_max_batch=dmb, spec_decode=spec_decode,
+                         draft_k=draft_k)
     return Deployment(cfg=cfg, params=params, executor=executor,
                       profile=profile, prefill=inst,
                       decode=dec, proxy=Proxy([inst], [dec]))
@@ -153,6 +157,12 @@ def main(argv=None):
                     "without a dense per-layer KV cache fall back to 1)")
     ap.add_argument("--prefix-share", action="store_true",
                     help="prefix-sharing prompt KV cache (not ported yet)")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative decoding: the self-drafting n-gram "
+                    "drafter and one batched k+1-position verify pass per "
+                    "step (greedy output equal to plain decoding)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="draft tokens proposed per speculative step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -164,7 +174,8 @@ def main(argv=None):
                 chunk=args.chunk, batch_budget=args.batch_budget,
                 max_seq=args.max_seq, decode_tokens=args.decode_tokens,
                 decode_max_batch=args.decode_max_batch, seed=args.seed,
-                device=args.device)
+                device=args.device, spec_decode=args.spec_decode,
+                draft_k=args.draft_k)
     dev = dep.executor.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"serving {dep.cfg.name} ({dep.cfg.family}) on {name} "
@@ -180,6 +191,13 @@ def main(argv=None):
         print(f"rounds={rep['scheduling_rounds']} "
               f"blocking_mean={rep['blocking_mean'] * 1e3:.1f}ms "
               f"preemptions={rep['preemptions']} decoded={rep['decoded']}")
+        if args.spec_decode:
+            sp = rep["spec"]
+            print(f"spec: steps={sp['spec_steps']} "
+                  f"accept_rate={sp['accept_rate']:.2f} "
+                  f"tokens/step={sp['tokens_per_step']:.2f} "
+                  f"(drafted {sp['draft_proposed']}, "
+                  f"accepted {sp['draft_accepted']})")
     finally:
         dep.shutdown()
 

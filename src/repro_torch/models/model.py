@@ -1,11 +1,11 @@
 """The dense model family: parameter shapes, embedding, projections, the
-language-model head and the two decode steps.
+language-model head, the two decode steps and the speculative verify step.
 
 Counterpart of src/repro/models/model.py (its dense, single-layer-stack
 part). The reference scans a jitted body over stacked layer parameters; here
 the layers are a Python loop of eager PyTorch ops. Attention goes through
-`kernels.ops`, which runs the CUDA decode kernel on the card and the plain
-version on the CPU.
+`kernels.ops`, which runs the CUDA decode and verify kernels on the card and
+the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -174,3 +174,67 @@ def decode_step_ragged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         v_new.append(v[:, 0])
     logits = lm_head(cfg, params, h)
     return logits[:, 0], torch.stack(k_new), torch.stack(v_new)
+
+
+def _ragged_verify_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             kv_lens: torch.Tensor) -> torch.Tensor:
+    """q: (B, S, H, hd) — S consecutive query positions starting at
+    kv_lens[b] per row; k/v: (B, T, K, hd) with the S draft K/V already
+    scattered in. Query s of row b attends to keys [0, kv_lens[b] + s]."""
+    return ops.verify_attention(q, k, v, kv_lens)
+
+
+def decode_verify_ragged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                         k_gathered: torch.Tensor, v_gathered: torch.Tensor,
+                         kv_lens):
+    """Speculative-verify sibling of `decode_step_ragged`: score S = k + 1
+    consecutive positions per stream in one step.
+
+    tokens: (B, S) — row b holds [current token, draft_0 .. draft_{k-1}]
+    (short drafts padded arbitrarily; the caller never accepts the padded
+    columns' logits). k_gathered/v_gathered: (L, B, T, K, hd) gathered views
+    (the caller's copy: each layer's S-token span is scattered into it IN
+    PLACE at positions kv_lens[b] .. kv_lens[b] + S - 1, so T must cover
+    kv_lens + S — an index assignment raises where the reference's
+    `.at[].set` would drop the write). kv_lens: (B,) committed context
+    lengths, the position tokens[b, 0] is written at.
+
+    Returns (logits (B, S, V), k_new (L, B, S, K, hd), v_new (L, B, S, K,
+    hd)) for the caller to commit (PagedKVCache.write_token_span).
+
+    Column s attends exactly the keys a plain step at position
+    kv_lens[b] + s would see (the committed prefix and the s earlier draft
+    keys), so greedy acceptance of the longest draft prefix that matches
+    argmax(logits) reproduces plain greedy decoding."""
+    if not supports_ragged_decode(cfg):
+        raise NotImplementedError(
+            f"speculative verify unsupported for family={cfg.family!r} "
+            f"(moe_layer_freq={cfg.moe_layer_freq}); use decode_step")
+    _check_dense(cfg)
+    B, S = tokens.shape
+    dev = tokens.device
+    pos = torch.as_tensor(kv_lens, device=dev).to(torch.int64)
+    rows = torch.arange(B, device=dev)[:, None]
+    rp = pos[:, None] + torch.arange(S, device=dev)[None, :]   # (B, S)
+    lens_attn = pos.to(torch.int32)                         # query 0's position
+    h = embed_tokens(cfg, params, tokens)                   # (B, S, D)
+    k_new, v_new = [], []
+    for l in range(cfg.num_layers):
+        p = layer_params(params, l)
+        k_l, v_l = k_gathered[l], v_gathered[l]             # (B, T, K, hd)
+        x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(cfg, p, x)                   # (B, S, ., hd)
+        q = L.apply_rope(q, rp, cfg.rope_theta)
+        k = L.apply_rope(k, rp, cfg.rope_theta)
+        # the whole draft span goes into the view; the per-row causal mask
+        # keeps column s blind to the later draft keys
+        k_l[rows, rp] = k.to(k_l.dtype)
+        v_l[rows, rp] = v.to(v_l.dtype)
+        o = _ragged_verify_attention(q, k_l, v_l, lens_attn)
+        h = h + o.reshape(B, S, -1) @ p["wo"]
+        h = ffn_block(cfg, p, h)
+        k_new.append(k)
+        v_new.append(v)
+    logits = lm_head(cfg, params, h)
+    return logits, torch.stack(k_new), torch.stack(v_new)

@@ -19,7 +19,7 @@ Scheduling (`DecodeSchedulerCore`, the reference's own code):
 
 Batch shapes are BUCKETED (``batch_buckets``, KV width padded to power-of-
 two block multiples) as in the reference; `compile_cache_size` counts the
-distinct (batch bucket, KV width) shapes stepped.
+distinct (batch bucket, KV width, positions per row) shapes stepped.
 
 ``decode_max_batch=1`` keeps the single-stream worker: one dense
 `decode_step` per token on the job's own copy of its handoff cache.
@@ -30,9 +30,25 @@ stream: ingestion waits on the event the handoff carries (``cache["ready"]``)
 and marks the tensors with `record_stream`, so the caching allocator cannot
 hand that memory to the prefill stream while this stream still reads it.
 
-Each finished stream's greedy tokens (the prefill's first token, then one
-per decode step) are kept in ``outputs[rid]``. Speculative decoding is not
-ported yet (``spec_decode=True`` raises).
+Each finished stream's greedy tokens (the prefill's first token, then every
+decoded token) are kept in ``outputs[rid]``, from the job's ``output``
+record.
+
+Speculative decoding (``spec_decode=True``, the reference's runtime): each
+step every resident row proposes up to ``draft_k`` tokens (the self-drafting
+n-gram drafter `_ngram_draft` over the stream's own recent tokens, or an
+injected ``draft_fn(rid, history, k)``), then ONE batched
+`decode_verify_ragged` pass (the CUDA verify kernel on the card) scores all
+k+1 positions per row. Greedy acceptance of the longest draft prefix that
+matches the argmax chain keeps the output equal to plain greedy decoding;
+rejected draft KV is rolled back by committed length
+(`PagedKVCache.write_token_span`). Per-stream accept-rate EMAs keep S-EDF
+slack and migration gating priced per ACCEPTED token, and a throttle drops
+low-accept streams back to drafting nothing, with a periodic re-probe; a
+step in which no row drafts runs the plain batched step. The drafter's
+corpus is ``DecodeJob.history`` (the reference's: from the resume point on,
+capped to the last `_SPEC_HISTORY_CAP` tokens); the output record is kept
+apart in ``DecodeJob.output``.
 """
 from __future__ import annotations
 
@@ -49,6 +65,7 @@ from repro_torch.core.predictor import DecodeStepPredictor
 from repro_torch.core.request import Request
 from repro_torch.core.scheduler import DecodeEntry, DecodeSchedulerCore
 from repro_torch.models.model import (decode_step, decode_step_ragged,
+                                      decode_verify_ragged,
                                       supports_ragged_decode)
 from repro_torch.models.segments import on_stream, stream_for
 from repro_torch.serving.kvcache import PagedKVCache
@@ -56,6 +73,31 @@ from repro_torch.serving.kvcache import PagedKVCache
 # sequence id of the pool slot padding rows write into / gather from — never
 # a real request rid (rids are non-negative)
 _SCRATCH_SEQ = -1
+
+# per-stream drafter corpus cap: the n-gram drafter scans this many recent
+# generated tokens (host memory and host CPU, not device state)
+_SPEC_HISTORY_CAP = 512
+
+
+def _ngram_draft(history: Sequence[int], k: int) -> List[int]:
+    """Self-drafting n-gram proposal: find the most recent EARLIER occurrence
+    of the stream's current suffix (3-gram first, then 2-gram) in its own
+    generated tokens and draft the k tokens that followed it. No weights and
+    no device work: repetitive streams hit, low-reuse ones draft nothing and
+    the step falls back to plain decoding."""
+    n = len(history)
+    if k <= 0 or n < 3:
+        return []
+    for m in (3, 2):
+        if n < m + 1:
+            continue
+        suffix = tuple(history[-m:])
+        for i in range(n - m - 1, -1, -1):
+            if tuple(history[i:i + m]) == suffix:
+                cont = history[i + m:i + m + k]
+                if cont:
+                    return [int(t) for t in cont]
+    return []
 
 
 @dataclass
@@ -73,8 +115,14 @@ class DecodeJob:
     target: int = 0                 # tokens to decode for THIS job
     base_len: int = 0               # prompt tokens in the pool (batched path):
                                     # kv position = base_len + tokens_done
-    history: Optional[List[int]] = None   # greedy tokens so far, first_token
+    output: Optional[List[int]] = None    # greedy tokens so far, first_token
                                           # included (DecodeInstance.outputs)
+    history: Optional[List[int]] = None   # drafter corpus (spec_decode): the
+                                    # tokens from this instance's resume
+                                    # point on, capped to _SPEC_HISTORY_CAP;
+                                    # None until the first spec step
+    probe_in: int = 0               # steps until a throttled stream re-probes
+                                    # the drafter (spec_decode)
     private: bool = False           # cache is this instance's own copy (the
                                     # single-stream worker writes it in place)
 
@@ -89,15 +137,21 @@ class DecodeInstance:
                  kv_block_size: int = 128,
                  prefix_share: bool = False,
                  kv_max_blocks: int = 0,
-                 spec_decode: bool = False):
+                 spec_decode: bool = False,
+                 draft_k: int = 4,
+                 draft_fn: Optional[Callable[
+                     [int, Sequence[int], int], Sequence[int]]] = None,
+                 spec_probe_period: int = 8,
+                 spec_throttle: float = 1.15):
         if decode_max_batch > 1 and not supports_ragged_decode(cfg):
             raise ValueError(
                 f"decode_max_batch={decode_max_batch} needs the batched "
                 f"ragged decode step, unsupported for family "
                 f"{cfg.family!r}; use decode_max_batch=1")
-        if spec_decode:
-            raise NotImplementedError(
-                "speculative decoding needs the verify kernel, not ported yet")
+        if spec_decode and not supports_ragged_decode(cfg):
+            raise ValueError(
+                f"spec_decode needs the batched verify step, unsupported "
+                f"for family {cfg.family!r}")
         if prefix_share:
             raise NotImplementedError("prefix sharing is not ported yet")
         self.params = params
@@ -119,7 +173,8 @@ class DecodeInstance:
         self._b_buckets = sorted(
             {min(b, self.decode_max_batch) for b in batch_buckets if b >= 1}
             | {self.decode_max_batch})
-        self._shapes: Set[Tuple[int, int]] = set()   # (B bucket, width) run
+        # (B bucket, width, positions per row) shapes run
+        self._shapes: Set[Tuple[int, int, int]] = set()
         self._tbt_ema = 0.0             # fallback t_step estimate (no prior)
         self._waiting: List[DecodeJob] = []
         self._resident: Dict[int, DecodeJob] = {}   # rid -> job (slots)
@@ -135,11 +190,27 @@ class DecodeInstance:
         self._shutdown = False
         self.finished: List[Request] = []
         self.outputs: Dict[int, List[int]] = {}
-        self.tbt_samples: List[float] = []   # per-token TBT
+        self.tbt_samples: List[float] = []   # per-ACCEPTED-token TBT: a step
+                                             # committing a tokens appends a
+                                             # samples of dt/a
         self.step_samples: List[float] = []  # per-step wall latency
         self.preemptions = 0
         self.steps = 0                  # batched decode steps executed
-        self.row_steps = 0              # (stream, step) pairs
+        self.row_steps = 0              # (stream, step) pairs: per-row
+                                        # tokens/step = len(tbt_samples)/this
+        # --- speculative decoding (inert with spec_decode=False) ----------
+        self.spec_decode = spec_decode
+        # drafts must fit the 1-block scratch sequence (span writes at
+        # positions 0..draft_k) and leave room for the verified token
+        self.draft_k = max(1, min(int(draft_k), kv_block_size - 1))
+        self.draft_fn = draft_fn        # None = self-drafting n-gram drafter
+        self.spec_probe_period = max(int(spec_probe_period), 1)
+        self.spec_throttle = float(spec_throttle)
+        self.spec_steps = 0             # steps that ran the k+1 verify shape
+        self.draft_proposed = 0         # draft tokens sent to verification
+        self.draft_accepted = 0         # draft tokens committed
+        self._accept_tps = 0.0          # aggregate tokens/step EMA fallback
+                                        # (no step_pred attached)
         # supervised-worker health: a worker exception strands queued +
         # resident jobs' REQUESTS back to `on_fault` (the Proxy re-runs them
         # from prefill — their pool KV died with the instance) and flips
@@ -153,7 +224,10 @@ class DecodeInstance:
         # from a hang AFTER restart() sees healthy=True again, so the flag
         # alone cannot tell it its job was re-dispatched — the epoch can
         self._epoch = 0
-        run = self._run_batched if self.decode_max_batch > 1 else self._run
+        # the verify pass is a batched ragged step, so spec_decode routes to
+        # the batched worker even at slot cap 1
+        run = self._run_batched \
+            if self.decode_max_batch > 1 or self.spec_decode else self._run
         self._thread = threading.Thread(target=lambda: self._supervised(run),
                                         daemon=True, name="decode-instance")
         self._thread.start()
@@ -197,8 +271,10 @@ class DecodeInstance:
                 and not self._resident and self._admitting == 0
 
     def compile_cache_size(self) -> int:
-        """Distinct (batch bucket, KV width) shapes the batched step has run
-        — the count the shape buckets bound."""
+        """Distinct (batch bucket, KV width, positions per row) shapes the
+        batched steps have run — the count the shape buckets bound: at most
+        |B buckets| x |KV widths| per family, the plain S = 1 step and,
+        under spec_decode, the S = draft_k + 1 verify step."""
         return len(self._shapes)
 
     # ------------------------------------------------- migration (the Proxy)
@@ -211,6 +287,13 @@ class DecodeInstance:
             res = list(self._resident.values())
         ctx = sum(j.request.num_tokens + j.tokens_done for j in jobs) \
             + sum(j.request.num_tokens + j.tokens_done for j in res)
+        if self.spec_decode:
+            # migration gating prices per-ACCEPTED-token time: a step here
+            # commits E[tokens/step] tokens
+            e = self._e_tokens()
+            if e > 1.0:
+                raw = step_time
+                step_time = lambda b, c, _f=raw, _e=e: _f(b, c) / _e  # noqa: E731
         return DecodeLoad(instance_id=instance_id,
                           n_resident=len(res),
                           n_waiting=len(jobs), ctx_tokens=float(ctx),
@@ -346,6 +429,29 @@ class DecodeInstance:
             return self.step_pred.step_time(b, ctx)
         return self._tbt_ema
 
+    def _e_tokens(self, key: Optional[int] = None) -> float:
+        """E[tokens committed per step] for S-EDF and migration pricing: the
+        per-stream accept EMA when `key` has history, else the aggregate;
+        exactly 1.0 with speculation off."""
+        if not self.spec_decode:
+            return 1.0
+        if self.step_pred is not None:
+            return self.step_pred.expected_tokens_per_step(key)
+        return self._accept_tps if self._accept_tps > 0.0 else 1.0
+
+    def _t_token(self, b: int, ctx: float,
+                 key: Optional[int] = None) -> float:
+        """Per-ACCEPTED-token service time: raw step time over expected
+        tokens per step. Identical to `_t_step` without speculation."""
+        return self._t_step(b, ctx) / self._e_tokens(key)
+
+    def _observe_accept(self, rid: int, advance: int) -> None:
+        """Record that one step committed `advance` tokens for stream rid."""
+        if self.step_pred is not None:
+            self.step_pred.observe_accept(rid, advance)
+        a = 0.25 if self._accept_tps > 0.0 else 1.0
+        self._accept_tps += a * (advance - self._accept_tps)
+
     def _entry(self, job: DecodeJob) -> DecodeEntry:
         return DecodeEntry(key=job.request.rid,
                            remaining_tokens=float(
@@ -359,16 +465,17 @@ class DecodeInstance:
         if self.step_pred is not None:
             self.step_pred.observe(b, ctx, tbt)
 
-    def _emit(self, job: DecodeJob, token: int) -> None:
-        if job.history is None:
-            job.history = [job.first_token]
-        job.history.append(token)
-        job.next_token = token
+    def _emit(self, job: DecodeJob, tokens: Sequence[int]) -> None:
+        """Append decoded tokens to the job's output record."""
+        if job.output is None:
+            job.output = [job.first_token]
+        job.output.extend(tokens)
+        job.next_token = tokens[-1]
 
     def _finish(self, job: DecodeJob, now: float) -> None:
         job.request.finish_time = now
         job.request.mean_tpot = (now - job.enqueued) / max(job.target, 1)
-        self.outputs[job.request.rid] = list(job.history or [job.first_token])
+        self.outputs[job.request.rid] = list(job.output or [job.first_token])
         self.finished.append(job.request)
 
     # ------------------------------------- single-stream worker (slot cap 1)
@@ -379,7 +486,7 @@ class DecodeInstance:
         ctx = sum(j.request.num_tokens + j.tokens_done
                   for j in self._waiting) / len(self._waiting)
         ranked = self.sched.rank([self._entry(j) for j in self._waiting],
-                                 now, self._t_step(1, ctx))
+                                 now, self._t_token(1, ctx))
         best = ranked[0].key
         for i, j in enumerate(self._waiting):
             if j.request.rid == best:
@@ -396,7 +503,7 @@ class DecodeInstance:
                 return False
             queued = list(self._waiting)
         ctx = job.request.num_tokens + job.tokens_done
-        t_step = self._t_step(1, float(ctx))
+        t_step = self._t_token(1, float(ctx), job.request.rid)
         own = self.sched.priority(self._entry(job), now, t_step)
         best = max(self.sched.priority(self._entry(j), now, t_step)
                    for j in queued)
@@ -443,7 +550,7 @@ class DecodeInstance:
                 self.last_progress = now
                 job.tokens_done += 1
                 job.cache = cache
-                self._emit(job, nxt)
+                self._emit(job, [nxt])
                 self._check_inject()           # chaos: token-boundary fault
                 if self._epoch != epoch:
                     # stranded mid-decode and already re-dispatched:
@@ -490,6 +597,11 @@ class DecodeInstance:
         pos = int(cache["pos"])
         remaining = job.target - job.tokens_done
         need_tokens = pos + max(remaining, 1)
+        if self.spec_decode:
+            # draft headroom: a verify step writes the FULL k+1 span even
+            # when only part of it commits, so the last step may touch
+            # positions up to final_len + draft_k
+            need_tokens += self.draft_k
         need_blocks = (need_tokens + self.kv_block_size - 1) \
             // self.kv_block_size
         with self._kv_lock:
@@ -552,7 +664,9 @@ class DecodeInstance:
         b_eff = min(self.decode_max_batch, total)
         ctx = sum(j.request.num_tokens + j.tokens_done
                   for j in everyone.values())
-        t_step = self._t_step(b_eff, ctx / total)
+        # per-accepted-token pricing: S-EDF slack compares deadline headroom
+        # against remaining_tokens * t, so t is time per COMMITTED token
+        t_step = self._t_token(b_eff, ctx / total)
         entries = [self._entry(j) for j in everyone.values()]
         batch, preempted = self.sched.select_batch(
             entries, set(self._resident), self.decode_max_batch, now, t_step)
@@ -585,6 +699,17 @@ class DecodeInstance:
                 return b
         return buckets[-1]
 
+    def _width_locked(self, jobs: List[DecodeJob]) -> int:
+        """KV width bucket: a power of two over the widest row's ALLOCATED
+        block count (gather_batch pads to at least the table width)."""
+        need_blocks = max(
+            (len(self.kv.table(j.request.rid).blocks) for j in jobs),
+            default=1)
+        width = 1
+        while width < need_blocks:
+            width *= 2
+        return width
+
     def _step_batch(self, jobs: List[DecodeJob]) -> None:
         """One decode step over the whole resident batch: gather the
         resident KV views, run `decode_step_ragged` at the padded bucket
@@ -600,15 +725,8 @@ class DecodeInstance:
             tokens[i] = j.first_token if j.next_token is None else j.next_token
         t0 = self.clock()
         with self._kv_lock:
-            # KV width bucket: power of two over the widest row's ALLOCATED
-            # block count (gather_batch pads to at least the table width)
-            need_blocks = max(
-                (len(self.kv.table(j.request.rid).blocks) for j in jobs),
-                default=1)
-            width = 1
-            while width < need_blocks:
-                width *= 2
-            self._shapes.add((bb, width))
+            width = self._width_locked(jobs)
+            self._shapes.add((bb, width, 1))
             k_g, v_g, _ = self.kv.gather_batch(seq_ids, width)
             logits, k_new, v_new = decode_step_ragged(
                 self.params, self.cfg,
@@ -630,7 +748,16 @@ class DecodeInstance:
         for i, j in enumerate(jobs):
             self.tbt_samples.append(dt)
             j.tokens_done += 1
-            self._emit(j, int(next_tokens[i]))
+            self._emit(j, [int(next_tokens[i])])
+            if self.spec_decode:
+                # drafter corpus and accept surface stay current through the
+                # plain-step fallback, or throttled streams would never see
+                # their tokens/step settle to 1
+                if j.history is None:
+                    j.history = [int(tokens[i])]
+                j.history.append(j.next_token)
+                del j.history[:-_SPEC_HISTORY_CAP]
+                self._observe_accept(j.request.rid, 1)
             if j.tokens_done >= j.target:
                 done.append(j)
         self._retire_done(done, now)
@@ -652,7 +779,118 @@ class DecodeInstance:
                     if self.kv is not None:
                         self.kv.free(rid)
                 self._in_pool.discard(rid)
+                if self.step_pred is not None and self.spec_decode:
+                    self.step_pred.forget_stream(rid)
             self._cv.notify_all()
+
+    # -------------------------------------- speculative draft -> verify step
+    def _draft_for(self, job: DecodeJob) -> List[int]:
+        """Propose this step's draft for one stream (possibly empty).
+
+        Adaptive throttle: when the stream's observed tokens/step EMA sits
+        below `spec_throttle`, verification costs more than the committed
+        tokens repay — draft nothing (the step then runs at plain shape) and
+        re-probe every `spec_probe_period` steps."""
+        k = min(self.draft_k, job.target - job.tokens_done - 1)
+        if k <= 0:
+            return []
+        rid = job.request.rid
+        if self._e_tokens(rid) < self.spec_throttle:
+            job.probe_in -= 1
+            if job.probe_in > 0:
+                return []
+            job.probe_in = self.spec_probe_period
+        if self.draft_fn is not None:
+            d = [int(t) for t in self.draft_fn(rid, job.history, k)][:k]
+        else:
+            d = _ngram_draft(job.history, k)[:k]
+        self.draft_proposed += len(d)
+        return d
+
+    def _spec_step_batch(self, jobs: List[DecodeJob]) -> None:
+        """One speculative decode step: draft per row, ONE k+1-wide verify
+        pass (`decode_verify_ragged`) over the batch, greedy acceptance,
+        multi-token commit with rejected-KV rollback by length. When EVERY
+        row drafts nothing the step is the plain `_step_batch`."""
+        for j in jobs:
+            if j.history is None:
+                j.history = [j.first_token if j.next_token is None
+                             else j.next_token]
+        drafts = [self._draft_for(j) for j in jobs]
+        if not any(drafts):
+            self._step_batch(jobs)
+            return
+        n = len(jobs)
+        S = self.draft_k + 1
+        bb = self._bucket(n, self._b_buckets)
+        seq_ids = [j.request.rid for j in jobs] + [_SCRATCH_SEQ] * (bb - n)
+        kv_lens = np.zeros(bb, np.int64)
+        tokens = np.zeros((bb, S), np.int64)
+        for i, (j, d) in enumerate(zip(jobs, drafts)):
+            kv_lens[i] = j.base_len + j.tokens_done
+            tokens[i, 0] = j.first_token if j.next_token is None \
+                else j.next_token
+            # short or empty drafts leave zeros in the tail columns: the
+            # acceptance scan below stops at len(d), so they never commit
+            tokens[i, 1:1 + len(d)] = d
+        t0 = self.clock()
+        with self._kv_lock:
+            # extend each row's table to cover the FULL span the verify step
+            # writes (kv_len + S) BEFORE gathering: the gathered width must
+            # hold the draft positions, since an in-place index assignment
+            # out of range raises (ingestion already reserves draft_k
+            # headroom; this keeps a migrated-in table safe)
+            for i, j in enumerate(jobs):
+                rid = j.request.rid
+                need = int(kv_lens[i]) + S
+                table = self.kv.table(rid)
+                if len(table.blocks) * self.kv_block_size < need:
+                    self.kv.extend(rid, need - table.length)
+            width = self._width_locked(jobs)
+            self._shapes.add((bb, width, S))
+            k_g, v_g, _ = self.kv.gather_batch(seq_ids, width)
+            logits, k_new, v_new = decode_verify_ragged(
+                self.params, self.cfg,
+                torch.as_tensor(tokens, device=self.device), k_g, v_g,
+                torch.as_tensor(kv_lens, device=self.device))
+            greedy = logits.argmax(-1).tolist()             # (bb, S)
+            # commit the longest draft prefix matching the argmax chain,
+            # plus the one token the verify pass proves
+            counts = [0] * bb              # scratch rows commit nothing
+            advances = [1] * n
+            for i, (j, d) in enumerate(zip(jobs, drafts)):
+                a = 0
+                while a < len(d) and d[a] == greedy[i][a]:
+                    a += 1
+                advances[i] = min(a + 1, j.target - j.tokens_done)
+                counts[i] = advances[i]
+            self.kv.write_token_span(seq_ids, kv_lens.tolist(), counts,
+                                     k_new, v_new)
+            self._sync()
+        now = self.clock()
+        self.steps += 1
+        self.spec_steps += 1
+        self.last_progress = now
+        dt = now - t0
+        self.step_samples.append(dt)
+        self._observe(n, float(kv_lens[:n].mean()), dt)
+        done: List[DecodeJob] = []
+        self.row_steps += n
+        for i, j in enumerate(jobs):
+            adv = advances[i]
+            emitted = greedy[i][:adv]
+            self._emit(j, emitted)
+            j.history.extend(emitted)
+            del j.history[:-_SPEC_HISTORY_CAP]
+            j.tokens_done += adv
+            self.draft_accepted += adv - 1
+            self._observe_accept(j.request.rid, adv)
+            # one TBT sample per committed token, so TBT percentiles stay
+            # meaningful at tokens/step > 1
+            self.tbt_samples.extend([dt / adv] * adv)
+            if j.tokens_done >= j.target:
+                done.append(j)
+        self._retire_done(done, now)
 
     def _run_batched(self) -> None:
         while True:
@@ -691,4 +929,7 @@ class DecodeInstance:
             if not batch:
                 time.sleep(0.001)
                 continue
-            self._step_batch(batch)
+            if self.spec_decode:
+                self._spec_step_batch(batch)
+            else:
+                self._step_batch(batch)

@@ -6,6 +6,9 @@ continuous-batching decode runtime uses the batched pool I/O:
 
   * ``write_tokens(seq_ids, positions, k, v)`` — one in-place `index_put_`
     writes every resident stream's new token per step.
+  * ``write_token_span(seq_ids, positions, counts, k, v)`` — the
+    speculative-verify sibling: writes an S-token span per stream but
+    commits only ``counts[i]`` of it (rollback by length).
   * ``gather_batch(seq_ids, width)`` — one `index_select` materializes the
     whole resident set as (L, B, T_pad, K, hd) dense views for the batched
     decode step, rows padded to a common block count.
@@ -213,6 +216,43 @@ class PagedKVCache:
             blk[i] = table.blocks[pos // self.block_size]
             off[i] = pos % self.block_size
             table.length = max(table.length, pos + 1)
+        blk_t, off_t = self._index(blk), self._index(off)
+        self.k_pool[:, blk_t, off_t] = k.to(self.k_pool.dtype)
+        self.v_pool[:, blk_t, off_t] = v.to(self.v_pool.dtype)
+
+    def write_token_span(self, seq_ids: Sequence[int],
+                         positions: Sequence[int], counts: Sequence[int],
+                         k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write an S-token span per sequence in one in-place scatter, but
+        COMMIT only counts[i] tokens. k/v: (L, B, S, K, hd); row i's span
+        starts at absolute position positions[i] of seq_ids[i].
+
+        Rollback by truncation: all S positions are written, but
+        ``table.length`` advances only to positions[i] + counts[i]. Rejected
+        draft positions sit past the committed length, where every reader
+        masks by per-row kv_len, and a later step overwrites them. Rows with
+        counts[i] == 0 (scratch padding) commit nothing. The caller must
+        have ``extend``ed each table to cover positions[i] + S - 1.
+
+        Padding rows all write the same scratch positions, and on the card
+        `index_put_` with duplicate indices leaves the winner undefined.
+        That is harmless only because the scratch sequence commits nothing
+        and so is never read under a committed length."""
+        n = len(seq_ids)
+        S = int(k.shape[2])
+        blk = np.empty((n, S), np.int64)
+        off = np.empty((n, S), np.int64)
+        for i, (sid, pos) in enumerate(zip(seq_ids, positions)):
+            table = self._tables[sid]
+            if (pos + S - 1) // self.block_size >= len(table.blocks):
+                raise ValueError(
+                    f"seq {sid}: span [{pos}, {pos + S}) exceeds its "
+                    f"{len(table.blocks)}-block table; extend before writing")
+            for s in range(S):
+                blk[i, s] = table.blocks[(pos + s) // self.block_size]
+                off[i, s] = (pos + s) % self.block_size
+            if counts[i] > 0:
+                table.length = max(table.length, pos + int(counts[i]))
         blk_t, off_t = self._index(blk), self._index(off)
         self.k_pool[:, blk_t, off_t] = k.to(self.k_pool.dtype)
         self.v_pool[:, blk_t, off_t] = v.to(self.v_pool.dtype)

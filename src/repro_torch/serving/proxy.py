@@ -25,10 +25,10 @@ conservative and consistent with the simulated ones (docs/SCHEDULING.md).
 
 Counterpart of src/repro/serving/proxy.py, the same code on torch tensors:
 the handoff passes each request's cache row as a view of the prefill's KV
-with the event after its last write. Prefix-affinity dispatch, which probes
-each instance's prefix-sharing KV, and the speculative-decoding report wait
-for the slices that port prefix sharing and speculative decoding; asking
-for a `needs_prefix` policy raises.
+with the event after its last write. The report's ``spec`` key carries the
+speculative-decoding counters (all zeros with spec off). Prefix-affinity
+dispatch, which probes each instance's prefix-sharing KV, waits for the
+slice that ports prefix sharing; asking for a `needs_prefix` policy raises.
 """
 from __future__ import annotations
 
@@ -667,6 +667,23 @@ class Proxy:
             return r.finish_time is not None
         return r.first_token_time is not None
 
+    def _spec_report(self) -> dict:
+        decs = self.decode_instances
+        proposed = sum(d.draft_proposed for d in decs)
+        accepted = sum(d.draft_accepted for d in decs)
+        steps = [s for d in decs for s in d.step_samples]
+        tokens = sum(len(d.tbt_samples) for d in decs)
+        row_steps = sum(d.row_steps for d in decs)
+        return {
+            "spec_steps": sum(d.spec_steps for d in decs),
+            "draft_proposed": proposed,
+            "draft_accepted": accepted,
+            "accept_rate": accepted / proposed if proposed else 0.0,
+            # per-STREAM tokens committed per step (1.0 = plain decode)
+            "tokens_per_step": tokens / row_steps if row_steps else 0.0,
+            "step_latency_mean": float(np.mean(steps)) if steps else 0.0,
+        }
+
     def report(self) -> dict:
         with self._load_lock:
             dispatched = list(self.dispatched)
@@ -713,6 +730,10 @@ class Proxy:
                                       for d in self.decode_instances),
             "decode_steps": sum(getattr(d, "steps", 0)
                                 for d in self.decode_instances),
+            # speculative decoding: draft/accept counters plus the two
+            # latencies multi-token steps split apart — per-accepted-token
+            # TBT (tbt_samples) vs per-step wall latency (step_samples)
+            "spec": self._spec_report(),
             "scheduling_rounds": sum(i.scheduling_rounds
                                      for i in self.prefill_instances),
             "blocking_mean": float(np.mean(

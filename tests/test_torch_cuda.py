@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attn import flash_decode_attention
+from repro_torch.kernels.decode_attn import (MAX_ROWS, flash_decode_attention,
+                                             flash_verify_attention)
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
 
 pytestmark = pytest.mark.cuda
@@ -46,6 +47,18 @@ DECODE_CASES = [
     (4, 128, 4, 1, 128, [77, 1, 128, 5]),
     (4, 256, 4, 2, 32, [1, 77, 256, 130]),
     (3, 64, 4, 2, 16, [0, 1, 64]),                # a row of length 0 -> 0
+]
+
+VERIFY_CASES = [
+    # B, S, T, H, K, hd, kv_len per row (T not a multiple of 32; kv_len 0,
+    # 1 and T - S; S * H / K up to the kernel's 64 rows)
+    (3, 5, 300, 8, 2, 64, [0, 37, 295]),
+    (2, 1, 100, 8, 8, 128, [1, 99]),
+    (2, 2, 77, 8, 1, 64, [0, 75]),
+    (1, 5, 70, 64, 8, 128, [65]),
+    (4, 8, 129, 16, 2, 64, [0, 1, 64, 121]),
+    (2, 5, 45, 4, 2, 32, [0, 40]),
+    (1, 5, 33, 4, 2, 16, [28]),
 ]
 
 
@@ -94,6 +107,27 @@ def test_flash_decode_matches_plain(card, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", VERIFY_CASES)
+def test_flash_verify_matches_plain(card, case, dtype):
+    """The verify kernel against its plain version, and its column 0
+    bit-equal to the decode kernel at kv_len + 1 (same tile order and
+    arithmetic), which greedy bit-parity of speculative decoding rests on."""
+    B, S, T, H, K, hd, lens = case
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = _randn((B, S, H, hd), dtype, gen, card)
+    k = _randn((B, T, K, hd), dtype, gen, card)
+    v = _randn((B, T, K, hd), dtype, gen, card)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=card)
+    got = flash_verify_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    want = ref.verify_attention_ref(q, k, v, kv_len)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    col0 = flash_decode_attention(q[:, 0].contiguous(), k, v, kv_len + 1)
+    assert torch.equal(got[:, 0], col0)
+
+
 def test_strided_cache_views_and_dispatch(card):
     """The layer view of a (L, B, max_seq, K, hd) cache goes to the kernel
     without a copy, and `ops` dispatches CUDA tensors to the kernels only."""
@@ -105,11 +139,15 @@ def test_strided_cache_views_and_dispatch(card):
                                 kv_len=64)
     dec = ops.decode_attention(q[:, 0], cache[1], cache[0],
                                torch.tensor([64, 9], device=card))
+    ver = ops.verify_attention(q[:, :5], cache[1], cache[0],
+                               torch.tensor([64, 9], device=card))
     counts = ops.counts()
     assert counts == {"flash_prefill_attention": 1,
                       "flash_decode_attention": 1,
+                      "flash_verify_attention": 1,
                       "chunked_prefill_attention_ref": 0,
-                      "decode_attention_ref": 0}
+                      "decode_attention_ref": 0,
+                      "verify_attention_ref": 0}
     torch.testing.assert_close(
         got, ref.chunked_prefill_attention_ref(q, cache[1], cache[0],
                                                q_offset=40, kv_len=64),
@@ -118,6 +156,10 @@ def test_strided_cache_views_and_dispatch(card):
         dec, ref.decode_attention_ref(q[:, 0], cache[1], cache[0],
                                       kv_len=torch.tensor([64, 9],
                                                           device=card)),
+        rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(
+        ver, ref.verify_attention_ref(q[:, :5], cache[1], cache[0],
+                                      torch.tensor([64, 9], device=card)),
         rtol=2e-5, atol=2e-5)
 
 
@@ -134,3 +176,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     k = torch.zeros((1, 8, 32, 2), device=card).transpose(2, 3)
     with pytest.raises(ValueError, match="dense"):
         flash_decode_attention(q, k, k, 8)
+    q = torch.zeros((1, 9, 64, 32), device=card)          # 9 * 8 = 72 rows
+    k = torch.zeros((1, 16, 8, 32), device=card)
+    with pytest.raises(ValueError, match=str(MAX_ROWS)):
+        flash_verify_attention(q, k, k, 4)
+    q = torch.zeros((1, 5, 4, 32), device=card, dtype=torch.float16)
+    k = torch.zeros((1, 16, 2, 32), device=card, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_verify_attention(q, k, k, 4)
+    q = torch.zeros((1, 5, 4, 32), device=card)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_verify_attention(q, k, k, 4)

@@ -36,6 +36,14 @@ DECODE_CASES = [
     (1, 1024, 16, 8, 64, 1000),
 ]
 
+VERIFY_CASES = [
+    # B, S, T, H, K, hd, per-row kv_len: GQA 4/1/8 query heads per KV head,
+    # a row of length 0, ragged rows, a row whose last query sees key T - 1
+    (3, 5, 300, 8, 2, 64, [0, 37, 295]),
+    (2, 1, 128, 4, 4, 32, [5, 127]),
+    (2, 3, 96, 8, 1, 16, [0, 93]),
+]
+
 
 def qkv(seed, q_shape, kv_shape):
     rng = np.random.default_rng(seed)
@@ -136,6 +144,28 @@ def test_decode_ragged_per_row_kv_len():
         got[0], np.repeat(tv.numpy()[0, 0], H // K, axis=0), **F32)
 
 
+@pytest.mark.parametrize("case", VERIFY_CASES)
+def test_verify_plain_matches_pallas_and_naive(case):
+    """The plain verify attention against the JAX Pallas verify kernel in
+    interpret mode and the reference's own non-Pallas path
+    (naive_attention, causal, q_offset = kv_len); column 0 against the
+    plain decode attention at kv_len + 1."""
+    from repro.kernels.decode_attn import flash_verify_attention as jverify
+    from repro.models.layers import naive_attention as jnaive
+    B, S, T, H, K, hd, lens = case
+    lens = np.asarray(lens, np.int32)
+    (tq, tk, tv), (jq, jk, jv) = both(*qkv(8, (B, S, H, hd), (B, T, K, hd)))
+    got = ops.verify_attention(tq, tk, tv, torch.from_numpy(lens)).numpy()
+    pallas = jverify(jq, jk, jv, jnp.asarray(lens), block_k=128,
+                     interpret=True)
+    naive = jnaive(jq, jk, jv, causal=True, q_offset=jnp.asarray(lens))
+    np.testing.assert_allclose(got, np.asarray(pallas), **F32)
+    np.testing.assert_allclose(got, np.asarray(naive), **F32)
+    col0 = ref.decode_attention_ref(tq[:, 0], tk, tv,
+                                    kv_len=torch.from_numpy(lens + 1))
+    np.testing.assert_allclose(got[:, 0], col0.numpy(), **F32)
+
+
 def test_naive_attention_matches_jax():
     """The reference attention with per-row offsets and lengths (the -1e30
     fill path of the ragged decode step)."""
@@ -157,10 +187,13 @@ def test_cpu_tensors_take_the_plain_versions():
                                                 (1, 8, 2, 16)))
     ops.prefill_attention(q, k, v)
     ops.decode_attention(q[:, 0], k, v, 8)
+    ops.verify_attention(q[:, :3], k, v, 4)
     assert ops.counts() == {"flash_prefill_attention": 0,
                             "flash_decode_attention": 0,
+                            "flash_verify_attention": 0,
                             "chunked_prefill_attention_ref": 1,
-                            "decode_attention_ref": 1}
+                            "decode_attention_ref": 1,
+                            "verify_attention_ref": 1}
     ops.reset_counts()
 
 
