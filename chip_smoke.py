@@ -41,13 +41,18 @@ Phases; the first failure exits non-zero and prints no result:
     trajectories), then with `spec_decode=True, draft_k=4` under an oracle
     drafter (accepts everything), an adversarial one (accepts nothing and
     throttles) and the default n-gram drafter. Counters are zeroed before
-    and read after each run: the verify kernel must launch, no plain
-    version may run, the oracle must accept drafts, and every spec
-    trajectory must equal the plain one unless the first differing token
-    is an explained near-tie: both runs are repeated with their logits
-    recorded, and the plain step's top-2 logit gap there is no larger than
-    the verify column's largest logit difference from it. Then `build(..., spec_decode=True)` serves a short run of the
-    launcher's mix and the proxy's `spec` report is printed.
+    and read after each run: the verify kernel must launch once per layer
+    and verify step, no plain version may run, the oracle must accept
+    drafts, and every spec trajectory must equal the plain one unless the
+    first differing token is an explained near-tie. For that, both runs
+    are repeated with their logits recorded and must reproduce themselves;
+    at that token the verify column may differ from the plain step by at
+    most four bf16 steps at the logits' magnitude (4 * 2^-7 * max|logit|),
+    and the plain step's top-2 gap may be no larger than that difference.
+    Then, with the counters zeroed, `build(..., spec_decode=True)` serves a
+    short run of the launcher's mix (the n-gram drafter), and must have run
+    verify steps and launched the verify kernel once per layer and step;
+    those launches are the verify kernel's count in the kernels' record.
 
 The line before the last holds the kernels' record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -302,8 +307,7 @@ def logits_of(calls, pos, t):
 
 
 def spec_phase(torch, np, port, ops, dep, cfg):
-    """Phase 8 on the deployment's weights; returns the summed launch
-    counts of the spec runs."""
+    """Phase 8's instance runs on the deployment's weights."""
     ex = dep.executor
     rng = np.random.default_rng(8)
     handoffs = []
@@ -319,7 +323,6 @@ def spec_phase(torch, np, port, ops, dep, cfg):
     steps = np.asarray(plain_inst.step_samples) * 1e3
     print(f"plain: {plain_inst.steps} steps, step p50 {np.median(steps):.2f} "
           f"ms, time per committed token {steps.sum() / n_tok:.2f} ms")
-    total = dict.fromkeys(ops.counts(), 0)
     near_ties = []
     for label, draft in (
             ("oracle", oracle_drafter(plain)),
@@ -329,8 +332,6 @@ def spec_phase(torch, np, port, ops, dep, cfg):
         ops.reset_counts()
         inst, out = run_decode(port, dep.params, cfg, handoffs, n_tok, **kw)
         counts = ops.counts()
-        for name, n in counts.items():
-            total[name] += n
         steps = np.asarray(inst.step_samples) * 1e3
         rate = inst.draft_accepted / max(inst.draft_proposed, 1)
         print(f"{label}: spec_steps {inst.spec_steps} of {inst.steps} steps, "
@@ -344,6 +345,12 @@ def spec_phase(torch, np, port, ops, dep, cfg):
                      "verify_attention_ref"):
             if counts[name]:
                 fail(f"{label}: the plain {name} ran {counts[name]} times")
+        if counts["flash_verify_attention"] != cfg.num_layers * inst.spec_steps:
+            fail(f"{label}: {counts['flash_verify_attention']} verify launches "
+                 f"for {inst.spec_steps} verify steps of {cfg.num_layers} "
+                 f"layers")
+        if label != "ngram" and inst.spec_steps == 0:
+            fail(f"{label}: no verify step ran")
         if label == "oracle" and inst.draft_accepted == 0:
             fail("the oracle drafter's drafts were never accepted")
         differ = [i for i in range(len(plain)) if out[i] != plain[i]]
@@ -356,9 +363,12 @@ def spec_phase(torch, np, port, ops, dep, cfg):
             port, dep.params, cfg, handoffs, n_tok)
         out_again, spec_calls = recorded_run(
             port, dep.params, cfg, handoffs, n_tok, **kw)
+        same = plain_again == plain and out_again == out
         print(f"  {label}: streams {differ} differ from plain; recorded "
-              f"reruns reproduce both runs: "
-              f"{plain_again == plain and out_again == out}")
+              f"reruns reproduce both runs: {same}")
+        if not same:
+            fail(f"{label}: the recorded reruns did not reproduce the runs "
+                 "they are to explain")
         for i in differ:
             t = next(j for j, (a, b) in enumerate(zip(plain[i], out[i]))
                      if a != b)
@@ -368,20 +378,21 @@ def spec_phase(torch, np, port, ops, dep, cfg):
             top2 = lp.topk(2).values
             gap = (top2[0] - top2[1]).item()
             diff = (lv - lp).abs().max().item()
+            # four bf16 rounding steps at the largest logit: a fault that
+            # moves logits by whole units is not excused by a wide diff
+            limit = 4 * 2.0 ** -7 * lp.abs().max().item()
             print(f"  {label} stream {i} differs at token {t} (plain "
                   f"{plain[i][t]}, spec {out[i][t]}): plain top-2 gap "
                   f"{gap:.4e}, verify column vs plain step max |logit "
-                  f"diff| {diff:.4e}")
-            if gap > diff or int(lp.argmax()) != plain[i][t] \
+                  f"diff| {diff:.4e}, limit {limit:.4e}")
+            if gap > diff or diff > limit \
+                    or int(lp.argmax()) != plain[i][t] \
                     or int(lv.argmax()) != out[i][t]:
                 fail(f"{label} stream {i}: spec trajectory differs from the "
                      f"plain one at token {t}, not an explained near-tie")
-            near_ties.append((label, i, t, gap, diff))
+            near_ties.append((label, i, t, gap, diff, limit))
         del plain_calls, spec_calls
-    if total["flash_verify_attention"] <= 0:
-        fail("flash_verify_attention was not launched in phase 8")
     print(f"explained near-ties: {len(near_ties)} {near_ties}")
-    return total
 
 
 def main() -> None:
@@ -560,6 +571,16 @@ def main() -> None:
                 *decode_work(H, K, hd, lens, es))
             record[name] = row
             print(f"  {name}: {json.dumps(row)}", flush=True)
+            # the verify kernel at S = 1 computes the same function (query
+            # at kv_len - 1 sees kv_len keys): is a separate decode body
+            # worth keeping?
+            q1, lens1 = q[:, None], lens_t - 1
+            same = torch.equal(flash_verify_attention(q1, k, v, lens1)[:, 0],
+                               flash_decode_attention(q, k, v, lens_t))
+            print(f"  verify kernel at S 1 {label}: "
+                  f"{cuda_ms(torch, lambda: flash_verify_attention(q1, k, v, lens1)):.4f}"
+                  f" ms, decode kernel {row['ms']:.4f} ms, torch.equal {same}",
+                  flush=True)
         S = 5
         for label, lens in LLAMA_VERIFY:
             B = len(lens)
@@ -764,14 +785,14 @@ def main() -> None:
 
         # --- 8. speculative decoding at full width ---------------------------
         phase("8. speculative decoding: Llama3-8B, bf16, draft_k 4")
-        spec_counts = spec_phase(torch, np, port, ops, dep, cfg)
+        spec_phase(torch, np, port, ops, dep, cfg)
     finally:
         dep.shutdown()
     del dep, ex
     torch.cuda.empty_cache()
     ops.reset_counts()
     dep = build_deployment(full_config=True, max_seq=4096, chunk=512,
-                           decode_tokens=16, decode_max_batch=4, seed=0,
+                           decode_tokens=32, decode_max_batch=4, seed=0,
                            device="cuda", spec_decode=True, draft_k=4)
     try:
         rep = serve_trace(dep, requests=4, seed=1)
@@ -788,8 +809,13 @@ def main() -> None:
                  "verify_attention_ref"):
         if serve_counts[name]:
             fail(f"the plain {name} ran on the spec serve path")
-    spec_counts["flash_verify_attention"] += \
-        serve_counts["flash_verify_attention"]
+    n_verify = serve_counts["flash_verify_attention"]
+    if rep["spec"]["spec_steps"] <= 0 or n_verify <= 0:
+        fail(f"the spec serve ran {rep['spec']['spec_steps']} verify steps "
+             f"and launched the verify kernel {n_verify} times")
+    if n_verify != cfg.num_layers * rep["spec"]["spec_steps"]:
+        fail(f"the spec serve launched the verify kernel {n_verify} times "
+             f"in {rep['spec']['spec_steps']} verify steps")
 
     kernels = []
     for name, route, src, replaces, main in (
@@ -803,7 +829,7 @@ def main() -> None:
              "src/repro_torch/kernels/csrc/decode_attn.cu",
              "src/repro/kernels/decode_attn.py:129", MAIN_VERIFY)):
         row = record[f"{name} {main}"]
-        launches = spec_counts[name] if name == "flash_verify_attention" \
+        launches = serve_counts[name] if name == "flash_verify_attention" \
             else counts[name]
         kernels.append({"name": name, "route": route, "source": src,
                         "replaces": replaces, "launches": launches,

@@ -160,7 +160,8 @@ def main(argv=None):
     ap.add_argument("--spec-decode", action="store_true",
                     help="speculative decoding: the self-drafting n-gram "
                     "drafter and one batched k+1-position verify pass per "
-                    "step (greedy output equal to plain decoding)")
+                    "step (greedy output bit-equal to plain decoding in "
+                    "f32; in bf16 it may part at near-tied logits)")
     ap.add_argument("--draft-k", type=int, default=4,
                     help="draft tokens proposed per speculative step")
     ap.add_argument("--seed", type=int, default=0)
