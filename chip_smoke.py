@@ -9,15 +9,20 @@ Phases; the first failure exits non-zero and prints no result:
 
  1. device: the card's name and power limit (nvidia-smi); build the CUDA
     sources of `src/repro_torch/kernels/csrc/` with nvcc, one process each,
-    in parallel (timed).
+    in parallel (timed). The prefill kernel's tensor-core body must hold
+    wgmma (HGMMA) and TMA load (UTMALDG) instructions in its SASS
+    (cuobjdump); with --ptxas, its registers, spills and shared memory.
  2. kernels: each of the three kernels (prefill, decode, speculative verify)
     against its plain PyTorch version on the card, on the reference's test
     shapes and the Llama3-8B main-path shapes, in f32 (every element within
     2e-5) and bf16 (every element within 1e-5 + 1.6e-2 times the plain
-    value); the verify kernel's column 0 also against the decode kernel at
+    value); each prefill call must run the body its dtype and head_dim
+    select (the tensor-core body for bf16 at head_dim 64 or 128, by its
+    launch counter); the verify kernel's column 0 also against the decode kernel at
     kv_len + 1 (bit-equality printed). At the main-path shapes in bf16 the
     kernel, the plain version and one `F.scaled_dot_product_attention` call
-    (a yardstick the port never calls) are timed with CUDA events, beside
+    (a yardstick the port never calls) are timed with CUDA events (the calls
+    queued behind a spin of the card, so host launch gaps are not timed), beside
     the least time the card could take (bytes over 3.35 TB/s or operations
     over 989 TFLOP/s, the larger).
  3. model: the tiny Llama3-8B config in f32, prefill logits and a ragged
@@ -31,7 +36,8 @@ Phases; the first failure exits non-zero and prints no result:
     the first-token logits must be bit-equal to an uninterrupted run.
  6. serve: `serve_trace` over the launcher's mix (6 requests, 8 decode tokens
     each, decode batch 4); launch counters are zeroed just before, and both
-    kernels must have launched while no plain version ran. If the mix did not
+    kernels must have launched while no plain version ran, every prefill
+    launch on the tensor-core body. If the mix did not
     make the scheduler preempt, one long and then one short request force it.
  7. time breakdown (measurement, no check): `torch.profiler` over one
     4096-token prefill and one batched decode step, device time by kernel
@@ -139,12 +145,15 @@ def phase(name: str) -> None:
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean time of `fn` on the card from CUDA events around `iters` calls
-    (after `warmup` calls; the inputs stay in L2 where they fit)."""
+    (after `warmup` calls; the inputs stay in L2 where they fit). The card
+    first spins for ~10 ms, so every call is queued before the first one
+    runs and the events time the card, not the host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -194,6 +203,48 @@ def breakdown(torch, label, fn, top: int = 6) -> None:
     for us, n, key in sorted(kern, reverse=True)[:top]:
         print(f"  {us / 1e3:9.2f} ms {100 * us / busy:5.1f}% x{n:<5} "
               f"{key[:90]}")
+
+
+def sass_report(build, lib_path: str) -> None:
+    """Count wgmma (HGMMA) and TMA load (UTMALDG) instructions in the SASS of
+    the prefill kernel's tensor-core body; fail if either is missing."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", lib_path],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed: {out.stderr.strip()}")
+    body, counts = None, {}
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            body = line.split("Function :")[1].strip()
+        elif body and "prefill_tc_kernel" in body:
+            for op in ("HGMMA", "UTMALDG"):
+                if op in line:
+                    counts[(body, op)] = counts.get((body, op), 0) + 1
+    bodies = sorted({b for b, _ in counts})
+    for body in bodies:
+        print(f"SASS {body[-60:]}: HGMMA {counts.get((body, 'HGMMA'), 0)}, "
+              f"UTMALDG {counts.get((body, 'UTMALDG'), 0)}")
+    if len(bodies) != 2 or not all(counts.get((b, op), 0) > 0 for b in bodies
+                                   for op in ("HGMMA", "UTMALDG")):
+        fail("the tensor-core prefill bodies (hd 64, 128) lack HGMMA or "
+             "UTMALDG instructions in their SASS")
+
+
+def ptxas_report(log: str, smem_bytes) -> None:
+    """Registers, spills and shared memory of the prefill kernel's
+    tensor-core body, from nvcc's -Xptxas -v output."""
+    fn, spills = None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "prefill_tc_kernel" in fn and "spill stores" in line:
+            spills = line.strip()
+        elif fn and "prefill_tc_kernel" in fn and "Used" in line:
+            hd = 128 if "ILi128E" in fn else 64
+            print(f"ptxas prefill_tc_kernel<{hd}>: "
+                  f"{line.split(':', 1)[1].strip()}; {spills}; dynamic smem "
+                  f"{smem_bytes(hd)} bytes")
 
 
 def prefill_work(B, Sq, H, K, hd, q_offset, kv_len, es):
@@ -413,7 +464,8 @@ def main() -> None:
         from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels.decode_attn import (flash_decode_attention,
                                                      flash_verify_attention)
-        from repro_torch.kernels.flash_prefill import flash_prefill_attention
+        from repro_torch.kernels.flash_prefill import (flash_prefill_attention,
+                                                       tensor_core_body)
         from repro_torch.launch.serve import build as build_deployment
         from repro_torch.launch.serve import serve_trace
         from repro_torch.models.model import decode_step_ragged
@@ -450,6 +502,10 @@ def main() -> None:
         fail(f"kernel build: {exc}")
     print(f"built {sorted(libs)} in {time.monotonic() - t0:.1f} s "
           f"into {build.BUILD_DIR}", flush=True)
+    sass_report(build, libs["flash_prefill"])
+    if args.ptxas:
+        smem = build.load("flash_prefill").flash_prefill_tc_smem_bytes
+        ptxas_report(build.LOGS.get("flash_prefill", ""), smem)
 
     # --- 2. kernels against their plain versions ----------------------------
     phase("2. kernels against their plain versions on the card")
@@ -480,18 +536,29 @@ def main() -> None:
                  f"{atol}+{rtol}*|plain| (max abs error {err})")
         return err
 
+    def prefill(q, k, v, *args, **kw):
+        """flash_prefill_attention, failing unless it ran the body that the
+        dtype and head_dim select; returns the output and the body's name."""
+        ops.reset_counts()
+        out = flash_prefill_attention(q, k, v, *args, **kw)
+        tc = tensor_core_body(q.dtype, q.shape[-1])
+        if ops.counts()["flash_prefill_wgmma"] != int(tc):
+            fail(f"prefill {tuple(q.shape)} {q.dtype}: the tensor-core body "
+                 f"{'did not run' if tc else 'ran'}")
+        return out, ("wgmma" if tc else "cuda cores")
+
     record = {}
     for dtype in (torch.float32, torch.bfloat16):
         for case in PREFILL_CASES:
             B, Sq, T, H, K, hd, qoff, kv_len, causal, window = case
             q, k, v = randn((B, Sq, H, hd), dtype), randn((B, T, K, hd), dtype), \
                 randn((B, T, K, hd), dtype)
-            got = flash_prefill_attention(q, k, v, qoff, kv_len,
-                                          causal=causal, local_window=window)
+            got, body = prefill(q, k, v, qoff, kv_len, causal=causal,
+                                local_window=window)
             want = ref.chunked_prefill_attention_ref(
                 q, k, v, q_offset=qoff, kv_len=kv_len, causal=causal,
                 local_window=window)
-            check(f"prefill {case}", dtype, got, want)
+            check(f"prefill {case} {body}", dtype, got, want)
         for case in DECODE_CASES:
             B, T, H, K, hd, lens = case
             q, k, v = randn((B, H, hd), dtype), randn((B, T, K, hd), dtype), \
@@ -524,8 +591,8 @@ def main() -> None:
             q = randn((1, Sq, H, hd), dtype)
             k, v = randn((1, T, K, hd), dtype), randn((1, T, K, hd), dtype)
             name = f"flash_prefill_attention {label}"
-            err = check(name, dtype,
-                        flash_prefill_attention(q, k, v, qoff, kv_len),
+            got, body = prefill(q, k, v, qoff, kv_len)
+            err = check(f"{name} {body}", dtype, got,
                         ref.chunked_prefill_attention_ref(
                             q, k, v, q_offset=qoff, kv_len=kv_len))
             if dtype != torch.bfloat16:
@@ -765,6 +832,10 @@ def main() -> None:
             if counts[name] != 0:
                 fail(f"the plain {name} ran {counts[name]} times on the "
                      "serve path")
+        if counts["flash_prefill_wgmma"] != counts["flash_prefill_attention"]:
+            fail(f"{counts['flash_prefill_attention']} prefill launches in "
+                 f"the serve phase, {counts['flash_prefill_wgmma']} of them "
+                 "on the tensor-core body")
 
         # --- 7. where the time goes (measurement only) ------------------------
         phase("7. device time by kernel: one 4096-token prefill, one decode "

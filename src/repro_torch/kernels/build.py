@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}      # compiler output of the last build of each source
 
 
 def nvcc_path() -> str:
@@ -58,8 +59,7 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, st
     """Compile every listed source that has no up-to-date library, all
     `nvcc` processes started together; raise with the compiler's output on
     the first failure. Returns {name: library path}. ``verbose`` adds
-    ``-Xptxas -v`` and returns nothing extra: the resource report goes to
-    stderr."""
+    ``-Xptxas -v``: the resource report is printed and kept in `LOGS`."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -77,6 +77,7 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, st
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
+        LOGS[name] = log
         if verbose and log:
             print(log, end="")
         if proc.returncode != 0:

@@ -6,6 +6,12 @@ Counterpart of `flash_prefill_attention` in src/repro/kernels/flash_prefill.py.
 `q_offset` and `kv_len` are plain runtime integers: no chunk position and no
 resume after a preemption rebuilds or respecialises the kernel. The plain
 version is `kernels.ref.chunked_prefill_attention_ref`.
+
+The kernel has two bodies, chosen by dtype and head_dim in its C entry point:
+bf16 at head_dim 64 or 128 runs on the tensor cores (wgmma, K/V by TMA,
+P split into two bf16 terms); f32 at every head_dim and bf16 at 16 or 32 run
+on the CUDA cores in f32. Every launch counts `flash_prefill_attention`, and
+a tensor-core launch also counts `flash_prefill_wgmma`.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from repro_torch.kernels import build, counts
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -29,15 +36,35 @@ def _kernel():
     fn = lib.flash_prefill_attention
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L,
-                   _I, _I, _I, _I, ctypes.c_float, _P]
+                   _I, _I, _I, _I, ctypes.c_float, _P, ctypes.POINTER(_I)]
     fn.restype = _I
     return lib, fn
+
+
+def tensor_core_body(dtype: torch.dtype, hd: int) -> bool:
+    """Whether a call of this dtype and head_dim runs the tensor-core body
+    (the C entry point makes the same choice and reports it)."""
+    return dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS
+
+
+def tma_strides(x: torch.Tensor):
+    """(batch, row) strides in elements of a (B, rows, heads, hd) operand as
+    its tensor map takes them: an axis of size 1 is never stepped, so it gets
+    the dense stride, which TMA accepts."""
+    sb, ss = x.stride(0), x.stride(1)
+    if x.shape[1] == 1:
+        ss = x.shape[2] * x.shape[3]
+    if x.shape[0] == 1:
+        sb = x.shape[1] * ss
+    return sb, ss
 
 
 def check_operand(name: str, x: torch.Tensor, device, dtype, hd: int) -> None:
     """Raise unless `x` is a CUDA tensor of the kernel's type whose last two
     axes (heads, head_dim) are dense and whose strides and address allow the
-    kernel's 4-element vector accesses."""
+    body's accesses: 4-element vectors on the CUDA cores; on the tensor
+    cores, TMA's 16-byte-aligned address and strides in multiples of 16
+    bytes."""
     if x.device != device or x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor on {device}, "
                          f"got {x.device}")
@@ -46,7 +73,12 @@ def check_operand(name: str, x: torch.Tensor, device, dtype, hd: int) -> None:
     if x.stride(-1) != 1 or x.stride(-2) != hd:
         raise ValueError(f"{name}: the (heads, head_dim) axes must be dense, "
                          f"got strides {x.stride()}")
-    if any(s % 4 for s in x.stride()[:-2]) or \
+    if tensor_core_body(dtype, hd):
+        if any(s * x.element_size() % 16 for s in tma_strides(x)) or \
+                x.data_ptr() % 16:
+            raise ValueError(f"{name}: strides {x.stride()} or address not "
+                             "aligned to 16 bytes, as TMA needs")
+    elif any(s % 4 for s in x.stride()[:-2]) or \
             x.data_ptr() % (4 * x.element_size()):
         raise ValueError(f"{name}: strides {x.stride()} or address not "
                          "aligned to 4 elements")
@@ -63,7 +95,8 @@ def flash_prefill_attention(
     local_window: int = 0,
 ) -> torch.Tensor:
     """Chunked-causal flash attention on the card. Returns (B, Sq, H, hd) in
-    q's dtype; rows with no visible key are 0."""
+    q's dtype; rows with no visible key are 0. bf16 at head_dim 64 or 128
+    runs the tensor-core body, everything else the f32 CUDA-core body."""
     B, Sq, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
@@ -86,12 +119,15 @@ def flash_prefill_attention(
         return out
     lib, fn = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    (q_sb, q_ss), (k_sb, k_ss), (v_sb, v_ss) = map(tma_strides, (q, k, v))
+    tensor_core = ctypes.c_int(0)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             DTYPES[q.dtype], B, Sq, T, H, K, hd,
-             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+             DTYPES[q.dtype], B, Sq, T, H, K, hd, q_sb, q_ss, k_sb, k_ss,
+             v_sb, v_ss, out.stride(0), out.stride(1),
              int(q_offset), kv_len, int(bool(causal)), int(local_window),
-             1.0 / math.sqrt(hd), stream)
+             1.0 / math.sqrt(hd), stream, ctypes.byref(tensor_core))
     build.check(lib, err, "flash_prefill_attention")
     counts.bump("flash_prefill_attention")
+    if tensor_core.value:
+        counts.bump("flash_prefill_wgmma")
     return out

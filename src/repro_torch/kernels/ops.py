@@ -55,9 +55,12 @@ def verify_attention(q, k, v, kv_len) -> torch.Tensor:
     return ref.verify_attention_ref(q, k, v, kv_len)
 
 
-_COUNTED = ("flash_prefill_attention", "flash_decode_attention",
-            "flash_verify_attention", "chunked_prefill_attention_ref",
-            "decode_attention_ref", "verify_attention_ref")
+# flash_prefill_wgmma counts the launches of flash_prefill_attention that
+# ran its tensor-core body (bf16 at head_dim 64 or 128)
+_COUNTED = ("flash_prefill_attention", "flash_prefill_wgmma",
+            "flash_decode_attention", "flash_verify_attention",
+            "chunked_prefill_attention_ref", "decode_attention_ref",
+            "verify_attention_ref")
 
 
 def counts() -> Dict[str, int]:

@@ -12,7 +12,9 @@ Tolerances, per element as atol + rtol*|plain|: in f32 the reference's 2e-5
 (never TF32); in bf16 torch.testing's own bf16 pair (atol 1e-5, rtol
 1.6e-2), which allows one bf16 rounding step of the output and no more. The
 kernels compute in f32 and round only the output, so a larger gap is a
-fault.
+fault. The prefill kernel's tensor-core body (bf16, head_dim 64 or 128)
+feeds bf16 operands to the tensor cores with f32 sums and splits P into two
+bf16 terms, which keeps it inside the same bf16 limit.
 """
 import pytest
 import torch
@@ -38,6 +40,17 @@ PREFILL_CASES = [
     (2, 48, 64, 4, 2, 32, 0, 48, True, 0),
     (1, 40, 96, 4, 2, 16, 56, None, True, 0),
     (1, 16, 64, 4, 2, 32, 40, 48, True, 4),       # rows with no visible key
+]
+
+# the tensor-core body of the prefill kernel (bf16, head_dim 64/128): the
+# cases above at those head dims, and B 2 with two query tiles of 128, Sq
+# and T off the 64/128 grids, kv_len < T, a window with and without the
+# causal mask, rows with no visible key
+TC_PREFILL_CASES = [c for c in PREFILL_CASES if c[5] in (64, 128)] + [
+    (1, 16, 64, 4, 2, 64, 40, 48, True, 4),       # rows with no visible key
+    (2, 200, 700, 8, 2, 128, 450, 650, True, 0),
+    (1, 130, 300, 4, 1, 128, 0, None, False, 96),
+    (1, 1, 300, 8, 8, 64, 299, None, True, 0),    # one query row
 ]
 
 DECODE_CASES = [
@@ -92,6 +105,80 @@ def test_flash_prefill_matches_plain(card, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("case", TC_PREFILL_CASES)
+def test_flash_prefill_tensor_core_body(card, case):
+    """bf16 at head_dim 64/128 runs the tensor-core body (its own counter)
+    and stays inside the bf16 limit of the plain version."""
+    B, Sq, T, H, K, hd, qoff, kv_len, causal, window = case
+    gen = torch.Generator(device=card).manual_seed(4)
+    q = _randn((B, Sq, H, hd), torch.bfloat16, gen, card)
+    k = _randn((B, T, K, hd), torch.bfloat16, gen, card)
+    v = _randn((B, T, K, hd), torch.bfloat16, gen, card)
+    ops.reset_counts()
+    got = flash_prefill_attention(q, k, v, qoff, kv_len, causal=causal,
+                                  local_window=window)
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    assert counts["flash_prefill_attention"] == 1
+    assert counts["flash_prefill_wgmma"] == 1
+    want = ref.chunked_prefill_attention_ref(
+        q, k, v, q_offset=qoff, kv_len=T if kv_len is None else kv_len,
+        causal=causal, local_window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tensor_core_body_on_a_cache_layer_view(card, hd):
+    """A layer view of a (L, B, max_seq, K, hd) cache with max_seq > kv_len
+    and NaN in every slot past kv_len: the keys past kv_len are never read
+    (TMA zero-fills them), so the output is finite and matches the plain
+    version over the first kv_len keys."""
+    L, B, max_seq, K, H, Sq, qoff, kv_len = 3, 2, 512, 2, 8, 100, 200, 300
+    gen = torch.Generator(device=card).manual_seed(5)
+    kc = _randn((L, B, max_seq, K, hd), torch.bfloat16, gen, card)
+    vc = _randn((L, B, max_seq, K, hd), torch.bfloat16, gen, card)
+    kc[:, :, kv_len:] = float("nan")
+    vc[:, :, kv_len:] = float("nan")
+    q = _randn((B, Sq, H, hd), torch.bfloat16, gen, card)
+    got = flash_prefill_attention(q, kc[1], vc[1], qoff, kv_len)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    want = ref.chunked_prefill_attention_ref(
+        q, kc[1, :, :kv_len], vc[1, :, :kv_len], q_offset=qoff)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+def test_tensor_core_body_is_deterministic(card):
+    """Two calls on the same inputs give the same bits (no atomics, a fixed
+    order), which the bit-exact resume of a preempted prefill rests on."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    q = _randn((1, 256, 16, 128), torch.bfloat16, gen, card)
+    k = _randn((1, 1024, 4, 128), torch.bfloat16, gen, card)
+    v = _randn((1, 1024, 4, 128), torch.bfloat16, gen, card)
+    first = flash_prefill_attention(q, k, v, 768, 1024)
+    second = flash_prefill_attention(q, k, v, 768, 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_tensor_core_body_refuses_misaligned_operands(card):
+    """TMA needs a 16-byte-aligned address and strides in multiples of 16
+    bytes; the wrapper raises on anything else rather than falling back."""
+    bf16 = torch.bfloat16
+    k = torch.zeros((1, 64, 2, 64), dtype=bf16, device=card)
+    q = torch.zeros(1 + 64 * 4 * 64, dtype=bf16, device=card)[1:] \
+        .view(1, 64, 4, 64)                        # 2 bytes off alignment
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_prefill_attention(q, k, k)
+    q = torch.zeros((1, 64, 4, 64), dtype=bf16, device=card)
+    padded = torch.zeros((1, 64, 2 * 64 + 4), dtype=bf16, device=card)
+    k = padded[:, :, :128].unflatten(-1, (2, 64))  # row stride 132 elements
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_prefill_attention(q, k, k)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", DECODE_CASES)
 def test_flash_decode_matches_plain(card, case, dtype):
@@ -143,6 +230,7 @@ def test_strided_cache_views_and_dispatch(card):
                                torch.tensor([64, 9], device=card))
     counts = ops.counts()
     assert counts == {"flash_prefill_attention": 1,
+                      "flash_prefill_wgmma": 0,
                       "flash_decode_attention": 1,
                       "flash_verify_attention": 1,
                       "chunked_prefill_attention_ref": 0,

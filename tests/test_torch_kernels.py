@@ -3,7 +3,11 @@ PyTorch versions for a CPU tensor) against the JAX package: its Pallas
 kernels run in interpret mode and its pure-jnp oracles, on the reference's
 own cases and tolerances (tests/test_kernels.py), in f32. The CUDA kernels
 themselves are held against the same plain versions on the card by
-tests/test_torch_cuda.py and chip_smoke.py."""
+tests/test_torch_cuda.py and chip_smoke.py; the arithmetic of the prefill
+kernel's tensor-core body is emulated here and held against the Pallas
+kernel in the port's bf16 limit."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,6 +47,12 @@ VERIFY_CASES = [
     (2, 1, 128, 4, 4, 32, [5, 127]),
     (2, 3, 96, 8, 1, 16, [0, 93]),
 ]
+
+
+# the port's bf16 limit per element, atol + rtol * |reference|
+# (chip_smoke.py, tests/test_torch_cuda.py)
+BF16_ATOL, BF16_RTOL = 1e-5, 1.6e-2
+LOG2E = 1.4426950408889634
 
 
 def qkv(seed, q_shape, kv_shape):
@@ -113,6 +123,100 @@ def test_prefill_empty_rows_are_zero():
                                               kv_len=48, local_window=4)
     assert np.all(got[:, 12:] == 0.0)          # positions 52.. see no key < 48
     np.testing.assert_allclose(got, np.asarray(want), **F32)
+
+
+def tensor_core_emulation(q, k, v, q_offset, kv_len, causal, window, terms,
+                          block_q=128, block_k=128):
+    """The arithmetic the prefill kernel's tensor-core body commits to
+    (`csrc/flash_prefill.cu`, `prefill_tc_kernel`), in plain PyTorch: bf16
+    q/k/v, scores summed in f32 and scaled by log2(e)/sqrt(hd), an online
+    softmax over block_k-key tiles from the first tile the query block's
+    loop visits (keys past kv_len read as zeros), exp2, p zeroed under the
+    mask after the exp, l summed from the f32 p, P fed to the P V product
+    as two bf16 terms (P_hi = p cut to its top 16 bits, P_lo = bf16(p -
+    P_hi)) or, with `terms` 1, as one (bf16(p)), O in f32, and a bf16
+    output. Returns it in f32."""
+    B, Sq, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    kv_end = min(kv_len, T)
+    scale = torch.tensor(1.0 / math.sqrt(hd)) * torch.tensor(LOG2E)
+    q = q.to(torch.bfloat16).float()
+    k, v = (x.to(torch.bfloat16).float().repeat_interleave(H // K, dim=2)
+            for x in (k, v))
+    out = torch.zeros(B, Sq, H, hd)
+    fill = torch.tensor(-1e30)
+    for q0 in range(0, Sq, block_q):
+        q1 = min(q0 + block_q, Sq)
+        qpos = q_offset + torch.arange(q0, q1)[:, None]
+        k_stop = min(kv_end, q_offset + q1) if causal else kv_end
+        k_begin = (max(0, q_offset + q0 - window + 1) // block_k * block_k
+                   if window else 0)
+        qb = q[:, q0:q1].transpose(1, 2)                  # (B, H, rows, hd)
+        m = torch.full((B, H, q1 - q0, 1), -math.inf)
+        l = torch.zeros(B, H, q1 - q0, 1)
+        acc = torch.zeros(B, H, q1 - q0, hd)
+        for k_lo in range(k_begin, k_stop, block_k):
+            n = min(k_lo + block_k, kv_end) - k_lo
+            kt = torch.zeros(B, H, block_k, hd)
+            vt = torch.zeros(B, H, block_k, hd)
+            kt[:, :, :n] = k[:, k_lo:k_lo + n].transpose(1, 2)
+            vt[:, :, :n] = v[:, k_lo:k_lo + n].transpose(1, 2)
+            s = qb @ kt.transpose(2, 3) * scale
+            key = k_lo + torch.arange(block_k)[None, :]
+            mask = key < kv_end
+            if causal:
+                mask = mask & (key <= qpos)
+            if window:
+                mask = mask & (key > qpos - window)
+            s = torch.where(mask, s, fill)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(mask, torch.exp2(s - m_new), torch.tensor(0.0))
+            l = l * alpha + p.sum(-1, keepdim=True)
+            if terms == 2:
+                p_hi = (p.view(torch.int32) & -65536).view(torch.float32)
+                pv = p_hi @ vt + (p - p_hi).to(torch.bfloat16).float() @ vt
+            else:
+                pv = p.to(torch.bfloat16).float() @ vt
+            acc = acc * alpha + pv
+            m = m_new
+        o = acc / torch.where(l == 0.0, torch.ones_like(l), l)
+        out[:, q0:q1] = o.to(torch.bfloat16).float().transpose(1, 2)
+    return out
+
+
+def _against_pallas_bf16(case, terms):
+    """Worst element of the emulation against the JAX Pallas kernel
+    (interpret mode, f32, on the same bf16-rounded inputs), as a multiple
+    of the port's bf16 limit."""
+    B, Sq, T, H, K, hd, qoff, causal, window = case
+    arrays = [a.astype(jnp.bfloat16).astype(np.float32)
+              for a in qkv(9, (B, Sq, H, hd), (B, T, K, hd))]
+    (tq, tk, tv), (jq, jk, jv) = both(*arrays)
+    got = tensor_core_emulation(tq, tk, tv, qoff, T, causal, window, terms)
+    want = torch.from_numpy(np.array(jops.prefill_attention(
+        jq, jk, jv, q_offset=qoff, causal=causal, local_window=window,
+        impl="pallas_interpret", block_q=64, block_k=128)))
+    return ((got - want).abs()
+            / (BF16_ATOL + BF16_RTOL * want.abs())).max().item()
+
+
+TENSOR_CORE_CASES = [c for c in PREFILL_CASES if c[5] in (64, 128)]
+
+
+@pytest.mark.parametrize("case", TENSOR_CORE_CASES)
+def test_tensor_core_arithmetic_within_bf16_limit(case):
+    """With P as two bf16 terms, the body's arithmetic stays inside the bf16
+    limit of the f32 Pallas kernel: what remains is the output's own
+    rounding (at most 2^-8 of a value, a quarter of the limit)."""
+    assert _against_pallas_bf16(case, terms=2) <= 1.0
+
+
+@pytest.mark.parametrize("case", TENSOR_CORE_CASES)
+def test_one_bf16_p_term_exceeds_bf16_limit(case):
+    """Why the body splits P: rounding p to a single bf16 before P V moves
+    outputs near zero by ~2^-9 / sqrt(keys), many times the 1e-5 atol."""
+    assert _against_pallas_bf16(case, terms=1) > 1.0
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
@@ -189,6 +293,7 @@ def test_cpu_tensors_take_the_plain_versions():
     ops.decode_attention(q[:, 0], k, v, 8)
     ops.verify_attention(q[:, :3], k, v, 4)
     assert ops.counts() == {"flash_prefill_attention": 0,
+                            "flash_prefill_wgmma": 0,
                             "flash_decode_attention": 0,
                             "flash_verify_attention": 0,
                             "chunked_prefill_attention_ref": 1,
