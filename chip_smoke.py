@@ -9,22 +9,29 @@ Phases; the first failure exits non-zero and prints no result:
 
  1. device: the card's name and power limit (nvidia-smi); build the CUDA
     sources of `src/repro_torch/kernels/csrc/` with nvcc, one process each,
-    in parallel (timed). The prefill kernel's tensor-core body must hold
-    wgmma (HGMMA) and TMA load (UTMALDG) instructions in its SASS
-    (cuobjdump); with --ptxas, its registers, spills and shared memory.
+    in parallel (timed). From the SASS (cuobjdump): the prefill kernel's
+    tensor-core body must hold wgmma (HGMMA) and TMA load (UTMALDG)
+    instructions; `decode_attn.cu` must hold the split-KV body and its
+    combine kernel alone, every body with cp.async (LDGSTS), the bf16 ones
+    with mma.sync (HMMA) and the f32 ones without. With --ptxas, the
+    registers, spills and shared memory of those bodies.
  2. kernels: each of the three kernels (prefill, decode, speculative verify)
     against its plain PyTorch version on the card, on the reference's test
     shapes and the Llama3-8B main-path shapes, in f32 (every element within
     2e-5) and bf16 (every element within 1e-5 + 1.6e-2 times the plain
     value); each prefill call must run the body its dtype and head_dim
     select (the tensor-core body for bf16 at head_dim 64 or 128, by its
-    launch counter); the verify kernel's column 0 also against the decode kernel at
-    kv_len + 1 (bit-equality printed). At the main-path shapes in bf16 the
-    kernel, the plain version and one `F.scaled_dot_product_attention` call
-    (a yardstick the port never calls) are timed with CUDA events (the calls
-    queued behind a spin of the card, so host launch gaps are not timed), beside
-    the least time the card could take (bytes over 3.35 TB/s or operations
-    over 989 TFLOP/s, the larger).
+    launch counter); the verify kernel's column 0 must be bit-equal to the
+    decode kernel at kv_len + 1; both wrappers must launch the one split-KV
+    body (its counter). At the main-path shapes in bf16 the kernel, the
+    plain version and one `F.scaled_dot_product_attention` call (a
+    yardstick the port never calls) are timed with CUDA events (the calls
+    queued behind a spin of the card, so host launch gaps are not timed),
+    beside the least time the card could take (bytes over 3.35 TB/s or
+    operations over 989 TFLOP/s, the larger). Decode and verify are timed
+    L2-cold: the calls rotate over distinct K/V sets that together read at
+    least twice the 50 MB L2, and a reading under 0.95 of the bound fails
+    as a measurement fault.
  3. model: the tiny Llama3-8B config in f32, prefill logits and a ragged
     decode step on the card against the same functions on the CPU (2e-4),
     and one speculative-decoding run on the card whose tokens must equal
@@ -37,7 +44,8 @@ Phases; the first failure exits non-zero and prints no result:
  6. serve: `serve_trace` over the launcher's mix (6 requests, 8 decode tokens
     each, decode batch 4); launch counters are zeroed just before, and both
     kernels must have launched while no plain version ran, every prefill
-    launch on the tensor-core body. If the mix did not
+    launch on the tensor-core body and every decode launch on the split-KV
+    body. If the mix did not
     make the scheduler preempt, one long and then one short request force it.
  7. time breakdown (measurement, no check): `torch.profiler` over one
     4096-token prefill and one batched decode step, device time by kernel
@@ -68,6 +76,8 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +87,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA's data sheet
 PEAK_BF16_OPS = 989e12                    # dense bf16 tensor-core rate
+L2_BYTES = 50e6                           # H100 L2 cache
 # per-element limit atol + rtol*|plain|: f32 at the reference's 2e-5
 # (tests/test_kernels.py:21) held as an absolute bound; bf16 at
 # torch.testing's bf16 pair, which allows one bf16 rounding step of the
@@ -143,23 +154,36 @@ def phase(name: str) -> None:
     print(f"\n=== {name} ===", flush=True)
 
 
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3, sets=None) -> float:
     """Mean time of `fn` on the card from CUDA events around `iters` calls
-    (after `warmup` calls; the inputs stay in L2 where they fit). The card
-    first spins for ~10 ms, so every call is queued before the first one
-    runs and the events time the card, not the host's launch rate."""
-    for _ in range(warmup):
-        fn()
+    (after `warmup` calls). Without `sets` the inputs stay in L2 where they
+    fit; with them, call i is `fn(*sets[i % len(sets)])`. The card first
+    spins for ~10 ms, so every call is queued before the first one runs and
+    the events time the card, not the host's launch rate."""
+    args = sets or [()]
+    for i in range(warmup):
+        fn(*args[i % len(args)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(20_000_000)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*args[i % len(args)])
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def rotation(pool_k, pool_v, shape, nbytes):
+    """Distinct K/V sets of `shape` carved from the two pools: enough that
+    one pass over them reads twice the L2 (`nbytes` a call), or as many as
+    the pools hold. Returns the sets and whether a pass reads that much."""
+    n_el = math.prod(shape)
+    n = min(pool_k.numel() // n_el, max(2, math.ceil(2 * L2_BYTES / nbytes)))
+    sets = [(pool_k[i * n_el:(i + 1) * n_el].view(shape),
+             pool_v[i * n_el:(i + 1) * n_el].view(shape)) for i in range(n)]
+    return sets, n * nbytes >= 2 * L2_BYTES
 
 
 def bound(ops_count: float, nbytes: float):
@@ -205,46 +229,81 @@ def breakdown(torch, label, fn, top: int = 6) -> None:
               f"{key[:90]}")
 
 
-def sass_report(build, lib_path: str) -> None:
-    """Count wgmma (HGMMA) and TMA load (UTMALDG) instructions in the SASS of
-    the prefill kernel's tensor-core body; fail if either is missing."""
+BODIES = ("prefill_tc_kernel", "split_kernel", "combine_kernel")
+
+
+def kernel_label(fn: str):
+    """(body, dtype, head_dim) of a mangled kernel name of BODIES."""
+    body = next(b for b in BODIES if b in fn)
+    dtype = "f32" if re.search(r"IfLi\d+E", fn) else "bf16"
+    return body, dtype, int(re.search(r"Li(\d+)E", fn).group(1))
+
+
+def sass_counts(build, lib_path: str, ops_):
+    """{kernel: {instruction: count}} over the SASS of a built library."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "-sass", lib_path],
                          capture_output=True, text=True, timeout=120)
     if out.returncode != 0:
         fail(f"cuobjdump failed: {out.stderr.strip()}")
-    body, counts = None, {}
+    fn, counts = None, {}
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            body = line.split("Function :")[1].strip()
-        elif body and "prefill_tc_kernel" in body:
-            for op in ("HGMMA", "UTMALDG"):
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(ops_, 0)
+        elif fn:
+            for op in ops_:
                 if op in line:
-                    counts[(body, op)] = counts.get((body, op), 0) + 1
-    bodies = sorted({b for b, _ in counts})
-    for body in bodies:
-        print(f"SASS {body[-60:]}: HGMMA {counts.get((body, 'HGMMA'), 0)}, "
-              f"UTMALDG {counts.get((body, 'UTMALDG'), 0)}")
-    if len(bodies) != 2 or not all(counts.get((b, op), 0) > 0 for b in bodies
-                                   for op in ("HGMMA", "UTMALDG")):
+                    counts[fn][op] += 1
+    return counts
+
+
+def sass_report(build, libs) -> None:
+    """The prefill kernel's tensor-core bodies must hold wgmma (HGMMA) and
+    TMA loads (UTMALDG); `decode_attn.cu` must hold the split-KV body and
+    its combine kernel alone (2 dtypes x 4 head dims each), every body with
+    cp.async (LDGSTS), the bf16 bodies with mma.sync (HMMA) and the f32
+    bodies without (no TF32)."""
+    pre = {fn: c for fn, c in sass_counts(
+        build, libs["flash_prefill"], ("HGMMA", "UTMALDG")).items()
+        if "prefill_tc_kernel" in fn}
+    for fn, c in sorted(pre.items()):
+        print(f"SASS {kernel_label(fn)}: {json.dumps(c)}")
+    if len(pre) != 2 or not all(n > 0 for c in pre.values()
+                                for n in c.values()):
         fail("the tensor-core prefill bodies (hd 64, 128) lack HGMMA or "
              "UTMALDG instructions in their SASS")
+    dec = sass_counts(build, libs["decode_attn"], ("HMMA", "LDGSTS"))
+    for fn, c in sorted(dec.items(), key=lambda kv: kernel_label(kv[0])):
+        print(f"SASS {kernel_label(fn)}: {json.dumps(c)}")
+    split = [fn for fn in dec if "split_kernel" in fn]
+    if len(split) != 8 or len(dec) != 16 or \
+            sum("combine_kernel" in fn for fn in dec) != 8:
+        fail(f"decode_attn.cu holds {sorted(dec)}, not the split body and "
+             "its combine kernel alone")
+    for fn in split:
+        bf16 = kernel_label(fn)[1] == "bf16"
+        if dec[fn]["LDGSTS"] == 0 or (dec[fn]["HMMA"] > 0) != bf16:
+            fail(f"{kernel_label(fn)}: SASS {dec[fn]}; every body loads by "
+                 "cp.async, and only the bf16 ones use mma.sync")
 
 
 def ptxas_report(log: str, smem_bytes) -> None:
-    """Registers, spills and shared memory of the prefill kernel's
-    tensor-core body, from nvcc's -Xptxas -v output."""
+    """Registers, spills and dynamic shared memory of the bodies in BODIES,
+    from nvcc's -Xptxas -v output; `smem_bytes(body, dtype, hd)` says the
+    last."""
     fn, spills = None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-        elif fn and "prefill_tc_kernel" in fn and "spill stores" in line:
+            fn = fn if any(b in fn for b in BODIES) else None
+        elif fn and "spill stores" in line:
             spills = line.strip()
-        elif fn and "prefill_tc_kernel" in fn and "Used" in line:
-            hd = 128 if "ILi128E" in fn else 64
-            print(f"ptxas prefill_tc_kernel<{hd}>: "
+        elif fn and "Used" in line:
+            body, dtype, hd = kernel_label(fn)
+            print(f"ptxas {body}<{dtype},{hd}>: "
                   f"{line.split(':', 1)[1].strip()}; {spills}; dynamic smem "
-                  f"{smem_bytes(hd)} bytes")
+                  f"{smem_bytes(body, dtype, hd)}")
 
 
 def prefill_work(B, Sq, H, K, hd, q_offset, kv_len, es):
@@ -462,7 +521,9 @@ def main() -> None:
     try:
         from repro_torch.configs.base import get_tiny_config
         from repro_torch.kernels import build, ops, ref
-        from repro_torch.kernels.decode_attn import (flash_decode_attention,
+        from repro_torch.kernels import counts as kcounts
+        from repro_torch.kernels.decode_attn import (BODY,
+                                                     flash_decode_attention,
                                                      flash_verify_attention)
         from repro_torch.kernels.flash_prefill import (flash_prefill_attention,
                                                        tensor_core_body)
@@ -502,10 +563,20 @@ def main() -> None:
         fail(f"kernel build: {exc}")
     print(f"built {sorted(libs)} in {time.monotonic() - t0:.1f} s "
           f"into {build.BUILD_DIR}", flush=True)
-    sass_report(build, libs["flash_prefill"])
+    sass_report(build, libs)
     if args.ptxas:
-        smem = build.load("flash_prefill").flash_prefill_tc_smem_bytes
-        ptxas_report(build.LOGS.get("flash_prefill", ""), smem)
+        pre_smem = build.load("flash_prefill").flash_prefill_tc_smem_bytes
+        dec_smem = build.load("decode_attn").decode_split_smem_bytes
+
+        def smem(body, dtype, hd):
+            if body == "prefill_tc_kernel":
+                return f"{pre_smem(hd)} bytes"
+            if body == "combine_kernel":
+                return "0 bytes"
+            return " / ".join(str(dec_smem(int(dtype == "bf16"), hd, t))
+                              for t in (1, 2)) + " bytes (1 / 2+ query tiles)"
+        for name in ("flash_prefill", "decode_attn"):
+            ptxas_report(build.LOGS.get(name, ""), smem)
 
     # --- 2. kernels against their plain versions ----------------------------
     phase("2. kernels against their plain versions on the card")
@@ -579,12 +650,46 @@ def main() -> None:
                                           lens_t + 1)
             check("  column 0 vs flash_decode_attention", dtype, got[:, 0],
                   col0)
-            print(f"  column 0 torch.equal decode at kv_len + 1: "
-                  f"{torch.equal(got[:, 0], col0)}", flush=True)
+            same = torch.equal(got[:, 0], col0)
+            print(f"  column 0 torch.equal decode at kv_len + 1: {same}",
+                  flush=True)
+            if not same:
+                fail(f"verify {case} {dtype}: column 0 differs from decode "
+                     "at kv_len + 1")
 
     H, K, hd, T = 32, 8, 128, 4096
     print("\nLlama3-8B main-path shapes (H 32, K 8, hd 128, T 4096); "
           "times in ms, CUDA events, 20 calls after 3 warm-up calls")
+    # 1 GiB of bf16 K and of V, carved into the L2-cold rotations
+    pool_k = torch.randn(2 ** 29, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+    pool_v = torch.randn(2 ** 29, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+
+    def timed(name, shape, work, **fns):
+        """The kernel, plain version and library call, each timed over one
+        rotation of K/V sets of `shape` (L2-cold where the rotation reads
+        twice the L2), beside the bound; fails on a reading under 0.95 of
+        the bound (a measurement fault, such as inputs left in L2)."""
+        sets, cold = rotation(pool_k, pool_v, shape, work[1])
+        row = {"cold": cold, "sets": len(sets)}
+        row["bound_ms"], row["bound_by"] = bound(*work)
+        for key, fn in fns.items():
+            # every set once where there are few; 20 calls at most, so the
+            # host's enqueueing stays inside the spin ahead of them
+            ms = cuda_ms(torch, fn, iters=min(20, max(
+                5 if key == "plain" else 20, len(sets))), sets=sets)
+            row["ms" if key == "kernel" else f"{key}_ms"] = ms
+            if ms < 0.95 * row["bound_ms"]:
+                fail(f"{name}: {key} took {ms:.5f} ms, under 0.95 of its "
+                     f"bound {row['bound_ms']:.5f} ms: a measurement fault")
+        shares = {key: round(row["bound_ms"] / row["ms" if key == "kernel"
+                                                   else f"{key}_ms"], 4)
+                  for key in fns}
+        print(f"  {name}: {json.dumps(row)} {'L2-cold' if cold else 'L2-warm'}"
+              f" over {len(sets)} K/V sets; share of the bound "
+              f"{json.dumps(shares)}", flush=True)
+        return row
     for dtype in (torch.bfloat16, torch.float32):
         es = torch.tensor([], dtype=dtype).element_size()
         for label, Sq, qoff, kv_len in LLAMA_PREFILL:
@@ -623,31 +728,33 @@ def main() -> None:
                         ref.decode_attention_ref(q, k, v, kv_len=lens_t))
             if dtype != torch.bfloat16:
                 continue
-            qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
             mask = (torch.arange(T, device=dev)[None, :]
                     < lens_t[:, None])[:, None, None, :]
-            row = dict(
-                ms=cuda_ms(torch, lambda: flash_decode_attention(
-                    q, k, v, lens_t)),
-                plain_ms=cuda_ms(torch, lambda: ref.decode_attention_ref(
-                    q, k, v, kv_len=lens_t), iters=5),
-                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-                max_abs_err=err)
-            row["bound_ms"], row["bound_by"] = bound(
-                *decode_work(H, K, hd, lens, es))
+            row = timed(
+                name, (B, T, K, hd), decode_work(H, K, hd, lens, es),
+                kernel=lambda k, v: flash_decode_attention(q, k, v, lens_t),
+                plain=lambda k, v: ref.decode_attention_ref(
+                    q, k, v, kv_len=lens_t),
+                library=lambda k, v: F.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True))
+            row["max_abs_err"] = err
             record[name] = row
-            print(f"  {name}: {json.dumps(row)}", flush=True)
-            # the verify kernel at S = 1 computes the same function (query
-            # at kv_len - 1 sees kv_len keys): is a separate decode body
-            # worth keeping?
-            q1, lens1 = q[:, None], lens_t - 1
-            same = torch.equal(flash_verify_attention(q1, k, v, lens1)[:, 0],
-                               flash_decode_attention(q, k, v, lens_t))
-            print(f"  verify kernel at S 1 {label}: "
-                  f"{cuda_ms(torch, lambda: flash_verify_attention(q1, k, v, lens1)):.4f}"
-                  f" ms, decode kernel {row['ms']:.4f} ms, torch.equal {same}",
-                  flush=True)
+            if label == MAIN_DECODE:
+                # one body: decode at kv_len is verify at S 1 from kv_len - 1
+                kcounts.reset()
+                dec = flash_decode_attention(q, k, v, lens_t)
+                ver = flash_verify_attention(q[:, None], k, v, lens_t - 1)
+                launched = kcounts.read([BODY, "flash_decode_attention",
+                                         "flash_verify_attention"])
+                same = torch.equal(ver[:, 0], dec)
+                print(f"  one body: launches {json.dumps(launched)}; verify "
+                      f"at S 1 from kv_len - 1 torch.equal decode: {same}",
+                      flush=True)
+                if launched != {BODY: 2, "flash_decode_attention": 1,
+                                "flash_verify_attention": 1} or not same:
+                    fail("decode and verify did not run the one split-KV "
+                         "body")
         S = 5
         for label, lens in LLAMA_VERIFY:
             B = len(lens)
@@ -660,27 +767,29 @@ def main() -> None:
                         ref.verify_attention_ref(q, k, v, lens_t))
             col0 = flash_decode_attention(q[:, 0].contiguous(), k, v,
                                           lens_t + 1)
-            print(f"  column 0 torch.equal decode at kv_len + 1: "
-                  f"{torch.equal(got[:, 0], col0)}", flush=True)
+            same = torch.equal(got[:, 0], col0)
+            print(f"  column 0 torch.equal decode at kv_len + 1: {same}",
+                  flush=True)
+            if not same:
+                fail(f"{name} {dtype}: column 0 differs from decode at "
+                     "kv_len + 1")
             if dtype != torch.bfloat16:
                 continue
-            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
-                v.transpose(1, 2)
+            qt = q.transpose(1, 2)
             qpos = lens_t[:, None, None] + torch.arange(S, device=dev)[:, None]
             mask = (torch.arange(T, device=dev)[None, None, :]
                     <= qpos)[:, None]                       # (B, 1, S, T)
-            row = dict(
-                ms=cuda_ms(torch, lambda: flash_verify_attention(
-                    q, k, v, lens_t)),
-                plain_ms=cuda_ms(torch, lambda: ref.verify_attention_ref(
-                    q, k, v, lens_t), iters=5),
-                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-                max_abs_err=err)
-            row["bound_ms"], row["bound_by"] = bound(
-                *verify_work(S, T, H, K, hd, lens, es))
+            row = timed(
+                name, (B, T, K, hd), verify_work(S, T, H, K, hd, lens, es),
+                kernel=lambda k, v: flash_verify_attention(q, k, v, lens_t),
+                plain=lambda k, v: ref.verify_attention_ref(q, k, v, lens_t),
+                library=lambda k, v: F.scaled_dot_product_attention(
+                    qt, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                    enable_gqa=True))
+            row["max_abs_err"] = err
             record[name] = row
-            print(f"  {name}: {json.dumps(row)}", flush=True)
+    del pool_k, pool_v
+    torch.cuda.empty_cache()
 
     # --- 3. tiny model, card against CPU -------------------------------------
     phase("3. tiny Llama3-8B config in f32: card against CPU")
@@ -836,6 +945,12 @@ def main() -> None:
             fail(f"{counts['flash_prefill_attention']} prefill launches in "
                  f"the serve phase, {counts['flash_prefill_wgmma']} of them "
                  "on the tensor-core body")
+        body = kcounts.read([BODY])[BODY]
+        if body != counts["flash_decode_attention"] + \
+                counts["flash_verify_attention"]:
+            fail(f"{body} launches of the split-KV body for "
+                 f"{counts['flash_decode_attention']} decode and "
+                 f"{counts['flash_verify_attention']} verify launches")
 
         # --- 7. where the time goes (measurement only) ------------------------
         phase("7. device time by kernel: one 4096-token prefill, one decode "

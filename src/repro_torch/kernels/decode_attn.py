@@ -1,6 +1,7 @@
-"""Flash-decode GQA attention as CUDA kernels for Hopper
-(`csrc/decode_attn.cu`, whose header note says what bounds them and how they
-are laid out):
+"""Flash-decode GQA attention as one CUDA kernel body for Hopper
+(`csrc/decode_attn.cu`, whose header note says what bounds it and how it is
+laid out: split-KV over fixed 128-key splits, cp.async loads, bf16 products
+on the tensor cores, and a second kernel that combines the splits):
 
   * `flash_decode_attention` — one new token per row against that row's KV
     view with a per-row valid length (plain version
@@ -8,6 +9,10 @@ are laid out):
   * `flash_verify_attention` — S = draft_k + 1 consecutive query positions
     per row for the speculative verify step, query s seeing keys
     [0, kv_len[b] + s] (plain version `kernels.ref.verify_attention_ref`).
+
+Both launch the same body: decode is S = 1 with the query at position
+kv_len - 1, a shift the C entry point takes as an int. Each launch counts
+its wrapper's name and `decode_split_body`, the body's own counter.
 
 Counterparts of the two kernels of src/repro/kernels/decode_attn.py.
 """
@@ -20,10 +25,13 @@ import math
 import torch
 
 from repro_torch.kernels import build, counts
-from repro_torch.kernels.flash_prefill import DTYPES, HEAD_DIMS, check_operand
+from repro_torch.kernels.flash_prefill import (DTYPES, HEAD_DIMS,
+                                               check_operand, tma_strides)
 
-MAX_QG = 16                     # query heads per KV head the kernel holds
-MAX_ROWS = 64                   # S * (H / K) query rows the verify kernel holds
+MAX_QG = 16                     # query heads per KV head the decode wrapper takes
+MAX_ROWS = 64                   # S * (H / K) query rows the body holds
+SPLIT_KEYS = 128                # keys per split (the body's SPLIT)
+BODY = "decode_split_body"      # launch counter of the shared body
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -31,15 +39,50 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = build.load("decode_attn")
-    fn = lib.flash_decode_attention
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                   _L, _L, _L, _L, _L, _L, ctypes.c_float, _P]
+    fn = lib.flash_decode_verify_attention
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float, _P]
     fn.restype = _I
-    vfn = lib.flash_verify_attention
-    vfn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                    _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float, _P]
-    vfn.restype = _I
-    return lib, fn, vfn
+    return lib, fn
+
+
+def _check_kv(name: str, x: torch.Tensor) -> None:
+    """cp.async copies 16-byte chunks of each K/V row."""
+    if any(s * x.element_size() % 16 for s in tma_strides(x)) or \
+            x.data_ptr() % 16:
+        raise ValueError(f"{name}: strides {x.stride()} or address not "
+                         "aligned to 16 bytes, as cp.async needs")
+
+
+def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            kv_len, out: torch.Tensor, shift: int) -> torch.Tensor:
+    """Run the body on q/out viewed as (B, S, H, hd): query s of row b at
+    position kv_len[b] + shift + s."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    for name, x in (("k", k), ("v", v)):
+        _check_kv(name, x)
+    lens = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
+    lens = lens.reshape(-1).expand(B).contiguous()
+    if out.numel() == 0:
+        return out
+    if T == 0:                  # no key: every row is 0, nothing to launch
+        return out.zero_()
+    splits = -(-T // SPLIT_KEYS)
+    n_ws = B * K * splits * S * (H // K) * (hd + 2)
+    ws = torch.empty((n_ws,), dtype=torch.float32, device=q.device)
+    lib, fn = _kernel()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    (k_sb, k_ss), (v_sb, v_ss) = tma_strides(k), tma_strides(v)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+             out.data_ptr(), ws.data_ptr(), n_ws, SPLIT_KEYS,
+             DTYPES[q.dtype], B, S, T, H, K, hd, shift,
+             q.stride(0), q.stride(1), k_sb, k_ss, v_sb, v_ss,
+             out.stride(0), out.stride(1), 1.0 / math.sqrt(hd), stream)
+    build.check(lib, err, what)
+    counts.bump(what)
+    counts.bump(BODY)
+    return out
 
 
 def flash_decode_attention(
@@ -67,19 +110,9 @@ def flash_decode_attention(
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_operand(name, x, q.device, q.dtype, hd)
-    lens = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
-    lens = lens.reshape(-1).expand(B).contiguous()
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    lib, fn, _ = _kernel()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-             out.data_ptr(), DTYPES[q.dtype], B, T, H, K, hd,
-             q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-             out.stride(0), 1.0 / math.sqrt(hd), stream)
-    build.check(lib, err, "flash_decode_attention")
-    counts.bump("flash_decode_attention")
+    _launch("flash_decode_attention", q[:, None], k, v, kv_len, out[:, None],
+            shift=-1)
     return out
 
 
@@ -114,18 +147,5 @@ def flash_verify_attention(
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_operand(name, x, q.device, q.dtype, hd)
-    lens = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
-    lens = lens.reshape(-1).expand(B).contiguous()
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    lib, _, fn = _kernel()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-             out.data_ptr(), DTYPES[q.dtype], B, S, T, H, K, hd,
-             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-             1.0 / math.sqrt(hd), stream)
-    build.check(lib, err, "flash_verify_attention")
-    counts.bump("flash_verify_attention")
-    return out
+    return _launch("flash_verify_attention", q, k, v, kv_len, out, shift=0)

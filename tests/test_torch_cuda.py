@@ -11,16 +11,18 @@ Tolerances, per element as atol + rtol*|plain|: in f32 the reference's 2e-5
 (tests/test_kernels.py:21), whose products the kernels do with f32 FMA
 (never TF32); in bf16 torch.testing's own bf16 pair (atol 1e-5, rtol
 1.6e-2), which allows one bf16 rounding step of the output and no more. The
-kernels compute in f32 and round only the output, so a larger gap is a
-fault. The prefill kernel's tensor-core body (bf16, head_dim 64 or 128)
-feeds bf16 operands to the tensor cores with f32 sums and splits P into two
-bf16 terms, which keeps it inside the same bf16 limit.
+kernels sum in f32 and round only the output, so a larger gap is a fault.
+The prefill kernel's tensor-core body (bf16, head_dim 64 or 128) and the
+split-KV decode/verify body in bf16 feed bf16 operands to the tensor cores
+with f32 sums and split P into two bf16 terms, which keeps them inside the
+same bf16 limit.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attn import (MAX_ROWS, flash_decode_attention,
+from repro_torch.kernels import counts, ops, ref
+from repro_torch.kernels.decode_attn import (BODY, MAX_ROWS, SPLIT_KEYS,
+                                             flash_decode_attention,
                                              flash_verify_attention)
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
 
@@ -72,6 +74,21 @@ VERIFY_CASES = [
     (4, 8, 129, 16, 2, 64, [0, 1, 64, 121]),
     (2, 5, 45, 4, 2, 32, [0, 40]),
     (1, 5, 33, 4, 2, 16, [28]),
+]
+
+
+# the split-KV body's edges (splits of SPLIT_KEYS = 128 keys): rows over
+# several splits, kv_len on a split boundary and one past it, T not a
+# multiple of the split, empty rows, 16 to 64 query rows, every head_dim,
+# and B 1 at T 4096. Decode runs at kv_len, verify at min(kv_len, T - S).
+SPLIT_CASES = [
+    # B, S, T, H, K, hd, kv_len per row
+    (4, 5, 700, 32, 8, 128, [0, 128, 129, 695]),
+    (3, 4, 520, 16, 2, 64, [127, 256, 384]),
+    (2, 8, 300, 16, 2, 64, [255, 257]),
+    (2, 3, 260, 8, 4, 32, [1, 257]),
+    (2, 2, 200, 4, 2, 16, [0, 129]),
+    (1, 5, 4096, 32, 8, 128, [4096]),
 ]
 
 
@@ -275,3 +292,64 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.zeros((1, 5, 4, 32), device=card)
     with pytest.raises(ValueError, match="dtype"):
         flash_verify_attention(q, k, k, 4)
+
+
+def _nan_past(x, ends):
+    """A copy of k or v (B, T, K, hd) with NaN in every key at or past
+    ends[b]: keys no row may read."""
+    x = x.clone()
+    for b, n in enumerate(ends):
+        x[b, n:] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_kv_edges(card, case, dtype):
+    """Decode and verify across split boundaries against their plain
+    versions (on the inputs without NaN), with NaN in k/v past each row's
+    last visible key kept out of the output; two calls give the same bits;
+    verify's column 0 is bit-equal to decode at kv_len + 1."""
+    B, S, T, H, K, hd, lens = case
+    gen = torch.Generator(device=card).manual_seed(7)
+    q = _randn((B, S, H, hd), dtype, gen, card)
+    k = _randn((B, T, K, hd), dtype, gen, card)
+    v = _randn((B, T, K, hd), dtype, gen, card)
+    dec_len = torch.tensor(lens, dtype=torch.int32, device=card)
+    ver_len = dec_len.clamp(max=T - S)
+    q0 = q[:, 0].contiguous()
+
+    kd, vd = _nan_past(k, lens), _nan_past(v, lens)
+    dec = flash_decode_attention(q0, kd, vd, dec_len)
+    torch.cuda.synchronize()
+    assert torch.equal(dec, flash_decode_attention(q0, kd, vd, dec_len))
+    want = ref.decode_attention_ref(q0, k, v, kv_len=dec_len)
+    torch.testing.assert_close(dec.float(), want.float(), **TOL[dtype])
+    assert not dec[dec_len == 0].float().any()          # empty rows are 0
+
+    ends = (ver_len + S).tolist()
+    kv_, vv_ = _nan_past(k, ends), _nan_past(v, ends)
+    ver = flash_verify_attention(q, kv_, vv_, ver_len)
+    torch.cuda.synchronize()
+    assert torch.equal(ver, flash_verify_attention(q, kv_, vv_, ver_len))
+    want = ref.verify_attention_ref(q, k, v, ver_len)
+    torch.testing.assert_close(ver.float(), want.float(), **TOL[dtype])
+    col0 = flash_decode_attention(q0, kv_, vv_, ver_len + 1)
+    assert torch.equal(ver[:, 0], col0)
+
+
+def test_decode_and_verify_launch_one_body(card):
+    """Both wrappers launch the split-KV body (its own counter), and the
+    wrapper's split size is the body's (the C entry point refuses any
+    other)."""
+    assert SPLIT_KEYS == 128
+    q = torch.zeros((2, 3, 8, 64), device=card, dtype=torch.bfloat16)
+    k = torch.zeros((2, 300, 2, 64), device=card, dtype=torch.bfloat16)
+    counts.reset()
+    flash_decode_attention(q[:, 0].contiguous(), k, k, 200)
+    assert counts.read([BODY, "flash_decode_attention"]) == {
+        BODY: 1, "flash_decode_attention": 1}
+    flash_verify_attention(q, k, k, 200)
+    assert counts.read([BODY, "flash_verify_attention"]) == {
+        BODY: 2, "flash_verify_attention": 1}
+    counts.reset()

@@ -3,9 +3,10 @@ PyTorch versions for a CPU tensor) against the JAX package: its Pallas
 kernels run in interpret mode and its pure-jnp oracles, on the reference's
 own cases and tolerances (tests/test_kernels.py), in f32. The CUDA kernels
 themselves are held against the same plain versions on the card by
-tests/test_torch_cuda.py and chip_smoke.py; the arithmetic of the prefill
-kernel's tensor-core body is emulated here and held against the Pallas
-kernel in the port's bf16 limit."""
+tests/test_torch_cuda.py and chip_smoke.py; the bf16 arithmetic of the
+prefill kernel's tensor-core body and of the split-KV decode/verify body is
+emulated here and held against the Pallas kernels in the port's bf16
+limit."""
 import math
 
 import jax.numpy as jnp
@@ -320,3 +321,128 @@ def test_counts_lose_nothing_across_threads():
     ops.reset_counts()
     assert [got[n] for n in names] == [40000, 40000]
 
+
+
+# the decode/verify body's fixed split and per-warp key tile
+# (`csrc/decode_attn.cu`: SPLIT, WKEYS)
+SPLIT_KEYS, WARP_KEYS = 128, 32
+
+
+def _merge(ms, ls, accs):
+    """Combine online-softmax states in list order (m in log2 units), as the
+    body merges its warps and the combine kernel its splits."""
+    m = torch.stack(ms).amax(0)
+    e = [torch.exp2(mi - m) for mi in ms]
+    l = e[0] * ls[0]
+    acc = e[0] * accs[0]
+    for ei, li, ai in zip(e[1:], ls[1:], accs[1:]):
+        l = l + ei * li
+        acc = acc + ei * ai
+    return m, l, acc
+
+
+def split_kv_emulation(q, k, v, kv_len, shift, terms):
+    """The arithmetic the decode/verify body commits to for bf16
+    (`csrc/decode_attn.cu`), in plain PyTorch: q (B, S, H, hd), query s of
+    row b at position kv_len[b] + shift + s seeing keys [0, min(that + 1,
+    T)); bf16 q/k/v, scores summed in f32 and scaled by log2(e)/sqrt(hd);
+    each 32-key warp tile of each 128-key split takes its own max, exp2 and
+    l from the f32 p; P V with P as two bf16 terms (P_hi = p cut to its top
+    16 bits, P_lo = bf16(p - P_hi)) or, with `terms` 1, as one; the warps of
+    a split merged in order, then the splits in ascending order, each
+    skipping the parts in which the row saw no key; a row that saw no key is
+    0; a bf16 output. Returns it in f32."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    scale = torch.tensor(1.0 / math.sqrt(hd)) * torch.tensor(LOG2E)
+    q = q.to(torch.bfloat16).float()
+    k, v = (x.to(torch.bfloat16).float().repeat_interleave(H // K, dim=2)
+            for x in (k, v))
+    out = torch.zeros(B, S, H, hd)
+    for b in range(B):
+        for s in range(S):
+            end = max(0, min(int(kv_len[b]) + shift + s + 1, T))
+            splits = []
+            for lo in range(0, end, SPLIT_KEYS):
+                warps = []
+                for w0 in range(lo, min(lo + SPLIT_KEYS, end), WARP_KEYS):
+                    w1 = min(w0 + WARP_KEYS, end)
+                    x = torch.einsum("hd,thd->ht", q[b, s], k[b, w0:w1]) * scale
+                    m = x.amax(-1, keepdim=True)
+                    p = torch.exp2(x - m)
+                    vt = v[b, w0:w1].transpose(0, 1)              # (H, t, hd)
+                    if terms == 2:
+                        p_hi = (p.view(torch.int32) & -65536).view(
+                            torch.float32)
+                        p_lo = (p - p_hi).to(torch.bfloat16).float()
+                        acc = (torch.einsum("ht,htd->hd", p_hi, vt)
+                               + torch.einsum("ht,htd->hd", p_lo, vt))
+                    else:
+                        acc = torch.einsum("ht,htd->hd",
+                                           p.to(torch.bfloat16).float(), vt)
+                    warps.append((m, p.sum(-1, keepdim=True), acc))
+                splits.append(_merge(*zip(*warps)))
+            if splits:
+                _, l, acc = _merge(*zip(*splits))
+                out[b, s] = (acc / l).to(torch.bfloat16).float()
+    return out
+
+
+SPLIT_KV_CASES = (
+    [("decode", B, 1, T, H, K, hd, [n] * B)
+     for B, T, H, K, hd, n in DECODE_CASES]
+    + [("decode", 4, 1, 256, 8, 2, 32, [1, 77, 256, 130])]
+    + [("verify",) + c for c in VERIFY_CASES])
+
+
+def _split_kv_against_pallas(case, terms):
+    """Worst element of the emulation against the JAX Pallas decode or
+    verify kernel (interpret mode, f32, on the same bf16-rounded inputs), as
+    a multiple of the port's bf16 limit."""
+    from repro.kernels.decode_attn import flash_verify_attention as jverify
+    kind, B, S, T, H, K, hd, lens = case
+    arrays = [a.astype(jnp.bfloat16).astype(np.float32)
+              for a in qkv(10, (B, S, H, hd), (B, T, K, hd))]
+    (tq, tk, tv), (jq, jk, jv) = both(*arrays)
+    jlens = jnp.asarray(lens, jnp.int32)
+    if kind == "decode":
+        got = split_kv_emulation(tq, tk, tv, lens, -1, terms)[:, 0]
+        want = jops.decode_attention(jq[:, 0], jk, jv, jlens,
+                                     impl="pallas_interpret", block_k=128)
+    else:
+        got = split_kv_emulation(tq, tk, tv, lens, 0, terms)
+        want = jverify(jq, jk, jv, jlens, block_k=128, interpret=True)
+    want = torch.from_numpy(np.array(want))
+    return ((got - want).abs()
+            / (BF16_ATOL + BF16_RTOL * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("case", SPLIT_KV_CASES)
+def test_split_kv_arithmetic_within_bf16_limit(case):
+    """The decode/verify body's bf16 arithmetic (fixed splits, per-warp
+    softmax, tensor-core products with P as two bf16 terms, ordered merges)
+    stays inside the port's bf16 limit of the f32 Pallas kernels."""
+    assert _split_kv_against_pallas(case, terms=2) <= 1.0
+
+
+@pytest.mark.parametrize("case", SPLIT_KV_CASES)
+def test_split_kv_one_bf16_p_term_exceeds_bf16_limit(case):
+    """Why the decode/verify body splits P as the prefill body does: one
+    bf16 P term puts outputs near zero outside the limit."""
+    assert _split_kv_against_pallas(case, terms=1) > 1.0
+
+
+def test_split_kv_verify_column0_equals_decode():
+    """In the emulation, verify's column 0 at S = 5 is bit-equal to decode
+    at kv_len + 1: the same splits and warp tiles, per-row sums in a fixed
+    order. Rows cross a split boundary (kv_len 127, 128) and one is
+    empty."""
+    B, S, T, H, K, hd = 4, 5, 300, 8, 2, 64
+    lens = [0, 127, 128, 295]
+    tq, tk, tv = (torch.from_numpy(a)
+                  for a in qkv(11, (B, S, H, hd), (B, T, K, hd)))
+    ver = split_kv_emulation(tq, tk, tv, lens, 0, terms=2)
+    dec = split_kv_emulation(tq[:, :1], tk, tv, [n + 1 for n in lens], -1,
+                             terms=2)
+    assert torch.equal(ver[:, 0], dec[:, 0])
+    assert torch.count_nonzero(dec) == dec.numel()
