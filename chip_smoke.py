@@ -28,7 +28,8 @@ Phases; the first failure exits non-zero and prints no result:
     yardstick the port never calls) are timed with CUDA events (the calls
     queued behind a spin of the card, so host launch gaps are not timed),
     beside the least time the card could take (bytes over 3.35 TB/s or
-    operations over 989 TFLOP/s, the larger). Decode and verify are timed
+    operations over 989 TFLOP/s, the larger). Decode, verify and the prefill
+    of a fully cached prompt (one query row at q_offset 4095) are timed
     L2-cold: the calls rotate over distinct K/V sets that together read at
     least twice the 50 MB L2, and a reading under 0.95 of the bound fails
     as a measurement fault.
@@ -67,6 +68,26 @@ Phases; the first failure exits non-zero and prints no result:
     short run of the launcher's mix (the n-gram drafter), and must have run
     verify steps and launched the verify kernel once per layer and step;
     those launches are the verify kernel's count in the kernels' record.
+ 9. prefix sharing and KV tiers at full width: a `build(prefix_share=True)`
+    deployment, and beside it a tiered `PrefillInstance` on its executor
+    (64 HBM blocks of 128 tokens, 64 host, 64 disk). A 4096-token prompt A
+    cold, then again: a hit of 4095 whose one-row prefill runs the
+    tensor-core body once per layer, logits within 4 * 2^-7 * max|logit|
+    of the cold run. A prompt sharing A's first 2048 tokens hits 2048 and
+    resumes at q_offset 2048, within the same bound of its own cold run.
+    A's 32 blocks are snapshotted, three fresh prompts push them into host
+    and disk (none dropped) and reuse their HBM blocks; after the copy
+    engine drains, every stored copy must equal the snapshot bit for bit
+    (a view taken at demotion would hold the flood's KV). A again: the
+    promoted blocks and the logits must be `torch.equal` to the snapshot
+    and to the first full hit's. A corrupted host copy of the last flood's
+    block 5: the promotion aborts with a drop, the prompt hits 640 and
+    recomputes the rest within the bf16 bound of its cold run. It prints
+    the copy jobs' times per block beside `promote_seconds`, `tier_stats`
+    and `accounting()` (which must balance), then serves 6 requests of the
+    launcher's mix through the deployment (templated prompts): prefix hits
+    > 0, every prefill launch on the tensor-core body, no plain version;
+    those launches are the prefill kernel's count in the kernels' record.
 
 The line before the last holds the kernels' record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -121,7 +142,10 @@ LLAMA_PREFILL = [
     ("chunk512@0", 512, 0, 512),
     ("chunk512@3584", 512, 3584, 4096),
     ("tail100@2048", 100, 2048, 2148),
+    ("resume1@4095", 1, 4095, 4096),            # a fully cached prompt
 ]
+# timed L2-cold like decode: one query row reads the whole 16.8 MB of K/V
+COLD_PREFILL = {"resume1@4095"}
 LLAMA_DECODE = [
     # label, per-row kv_len
     ("B1", [3000]),
@@ -505,6 +529,253 @@ def spec_phase(torch, np, port, ops, dep, cfg):
     print(f"explained near-ties: {len(near_ties)} {near_ties}")
 
 
+def timed_copy_jobs(engine):
+    """Record each copy-engine job's duration by kind ("demote", "spill",
+    "promote", "drop"), wrapping the engine's submit for this run."""
+    times = {}
+    submit = engine.submit
+
+    def timed_submit(kind, key, fn):
+        def run():
+            t0 = time.monotonic()
+            out = fn()
+            times.setdefault(kind, []).append(time.monotonic() - t0)
+            return out
+        return submit(kind, key, run)
+
+    engine.submit = timed_submit
+    return times
+
+
+def prefix_phase(torch, np, ops, dep, cfg):
+    """Phase 9: prefix sharing and the KV tiers at full width. Returns the
+    launch counts of the serve through `build(prefix_share=True)`."""
+    from repro_torch.core import SchedulerCore
+    from repro_torch.core.prefixcache import block_keys
+    from repro_torch.models.segments import on_stream
+    from repro_torch.serving.kvcache import raw_bytes
+    from repro_torch.serving.prefill_instance import PrefillInstance
+    from repro_torch.launch.serve import serve_trace
+
+    ex, bs = dep.executor, 128
+    pred = dep.prefill.scheduler.predictor
+    # 64 HBM blocks hold A (32) and the shared-half prompt's suffix (16);
+    # three fresh 4096-token prompts then push A's blocks into host (64)
+    # and disk (64), and no later step drops a key of A
+    inst = PrefillInstance(
+        dep.params, cfg, SchedulerCore(predictor=pred, batch_budget=4096),
+        max_seq=4096, executor=ex, prefix_share=True,
+        prefix_cache_blocks=64, kv_block_size=bs, host_cache_blocks=64,
+        disk_cache_blocks=64, promote_wait_s=300.0)
+    kv = inst.kv
+    job_times = timed_copy_jobs(kv._engine)
+    rng = np.random.default_rng(9)
+    vocab = cfg.vocab_size
+    block_mb = 2 * cfg.num_layers * bs * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * 2 / 1e6
+
+    def run(toks, label):
+        req = port_request(len(toks))
+        inst.submit_request(req, toks)
+        if not inst.drain(600.0) or not inst.healthy:
+            fail(f"{label}: the prefix-sharing instance did not drain "
+                 f"({inst.last_error!r})")
+        task = inst.completed_tasks[-1].prefill_task
+        torch.cuda.synchronize()
+        print(f"{label}: {len(toks)} tokens, hit {req.prefix_hit}, resumed "
+              f"at q_offset {task.start_offset}, TTFT {req.ttft:.4f} s",
+              flush=True)
+        return req, task
+
+    def bf16_gap(a, b, label):
+        """max |a - b| against four bf16 steps at max|b|."""
+        gap = (a.float() - b.float()).abs().max().item()
+        limit = 4 * 2.0 ** -7 * b.float().abs().max().item()
+        print(f"  {label}: max |logit diff| {gap:.4e}, limit {limit:.4e}")
+        if not gap <= limit:
+            fail(f"{label}: logits differ by {gap}, over {limit}")
+
+    def blocks_of(keys):
+        with inst._kv_lock:
+            return [kv._mgr._trie.get(k) for k in keys]
+
+    try:
+        # 1. cold, then a full hit: one query row over 4095 cached keys
+        A = rng.integers(0, vocab, 4096)
+        cold, cold_task = run(A, "A cold")
+        ops.reset_counts()
+        warm, warm_task = run(A, "A full hit")
+        counts = ops.counts()
+        print(f"  launches in the full-hit prefill: {json.dumps(counts)}")
+        if warm.prefix_hit != 4095 or warm_task.start_offset != 4095:
+            fail(f"A's full hit is {warm.prefix_hit}, not 4095")
+        if counts["flash_prefill_wgmma"] != cfg.num_layers or \
+                counts["flash_prefill_attention"] != cfg.num_layers or \
+                counts["chunked_prefill_attention_ref"]:
+            fail("the full-hit prefill did not run the tensor-core body "
+                 "once per layer alone")
+        bf16_gap(warm_task.logits, cold_task.logits, "full hit vs cold")
+        print(f"  TTFT cold {cold.ttft:.4f} s, full hit {warm.ttft:.4f} s: "
+              f"{cold.ttft / warm.ttft:.2f}x")
+        breakdown(torch, "  a full hit through the instance (pool gather, "
+                  "seeding, 160 one-row segments)", lambda: run(A, "  A"))
+
+        # 2. a prompt sharing A's first half
+        B = np.concatenate([A[:2048], rng.integers(0, vocab, 2048)])
+        half, half_task = run(B, "B shares 2048")
+        if half.prefix_hit != 2048 or half_task.start_offset != 2048:
+            fail(f"B's hit is {half.prefix_hit} at q_offset "
+                 f"{half_task.start_offset}, not 2048")
+        with on_stream(inst.stream):
+            want = ex.run_all(ex.start(B[None]))
+        torch.cuda.synchronize()          # made on the instance's stream
+        bf16_gap(half_task.logits, want, "shared half vs cold B")
+
+        # 3. demotion: A's blocks, snapshot, then reused by a flood
+        keys_a = block_keys(A, bs)
+        with on_stream(inst.stream):
+            snap = {k: (kv.k_pool[:, b].clone(), kv.v_pool[:, b].clone())
+                    for k, b in zip(keys_a, blocks_of(keys_a))}
+        torch.cuda.synchronize()
+        floods = [rng.integers(0, vocab, 4096) for _ in range(3)]
+        flood_logits = []
+        for i, F in enumerate(floods):
+            flood_logits.append(run(F, f"flood {i}")[1].logits)
+        if not kv._engine.drain(300.0):
+            fail("the copy engine did not drain after the flood")
+        stats = kv.tier_stats()
+        print(f"  tier census after the flood: {json.dumps(stats)}")
+        where = {"host": 0, "disk": 0}
+        for k, (wk, wv) in snap.items():
+            with kv._store_lock:
+                entry = kv._host_store.get(k)
+                path = kv._disk_index.get(k)
+            if entry is not None:
+                k_raw, v_raw, crc, dtype = entry
+                where["host"] += 1
+            elif path is not None:
+                with np.load(path) as z:
+                    k_raw, v_raw = z["k"], z["v"]
+                    crc, dtype = int(z["crc"]), str(z["dtype"])
+                where["disk"] += 1
+            else:
+                fail(f"A's key {k:#x} was dropped, not demoted")
+            if dtype != str(kv.k_pool.dtype).removeprefix("torch.") or \
+                    not np.array_equal(k_raw, raw_bytes(wk).cpu().numpy()) \
+                    or not np.array_equal(v_raw,
+                                          raw_bytes(wv).cpu().numpy()):
+                fail(f"stale KV: the stored copy of A's key {k:#x} differs "
+                     "from the block at demotion")
+        print(f"  A's 32 blocks: {json.dumps(where)}, every stored copy "
+              "bit-equal to the snapshot taken before the flood reused "
+              "their HBM blocks", flush=True)
+        if where["host"] == 0 or where["disk"] == 0:
+            fail(f"A's blocks are not in both cold tiers: {where}")
+
+        # 4. promotion: A again
+        with inst._kv_lock:
+            tiers = kv.probe_tiers(keys_a)
+        print(f"  probe_tiers(A) before: warm/host/disk {tiers}")
+        if tiers[1] <= 0 or tiers[2] <= 0:
+            fail(f"A's chain is not in host and disk: {tiers}")
+        n_promote = len(job_times.get("promote", ()))
+        again, again_task = run(A, "A promoted")
+        promote_s = job_times.get("promote", [])[n_promote:]
+        if again.prefix_hit != 4095:
+            fail(f"A after promotion hits {again.prefix_hit}, not 4095")
+        with on_stream(inst.stream):
+            same = all(torch.equal(kv.k_pool[:, b], snap[k][0])
+                       and torch.equal(kv.v_pool[:, b], snap[k][1])
+                       for k, b in zip(keys_a, blocks_of(keys_a)))
+        equal = torch.equal(again_task.logits, warm_task.logits)
+        print(f"  promoted blocks torch.equal the snapshot: {same}; logits "
+              f"torch.equal the full hit's: {equal}; {inst.prefix_promotions}"
+              f" blocks promoted, {inst.prefix_promoted_tokens} tokens")
+        if not same or not equal:
+            fail("promotion did not restore A's KV bit for bit")
+
+        # 5. a corrupt host copy: the last flood's chain is on host
+        keys_f = block_keys(floods[2], bs)
+        if not kv._engine.drain(300.0):
+            fail("the copy engine did not drain before the corruption")
+        victim = keys_f[5]
+        with kv._store_lock:
+            if victim not in kv._host_store:
+                fail("the last flood's block 5 has no host copy")
+            k_raw, v_raw, crc, dtype = kv._host_store[victim]
+            k_bad = k_raw.copy()
+            k_bad.ravel()[0] ^= 1
+            kv._host_store[victim] = (k_bad, v_raw, crc, dtype)
+        before = kv.tier_stats()
+        rec, rec_task = run(floods[2], "flood 2 with a corrupt copy")
+        after = kv.tier_stats()
+        print(f"  promote_aborts {before['promote_aborts']} -> "
+              f"{after['promote_aborts']}, tier_drops {before['tier_drops']}"
+              f" -> {after['tier_drops']}, copies_failed "
+              f"{before['copies_failed']} -> {after['copies_failed']}")
+        if rec.prefix_hit != 5 * bs or \
+                after["promote_aborts"] <= before["promote_aborts"] or \
+                victim in kv._mgr._host or victim in kv._mgr._disk:
+            fail(f"the corrupt copy was not dropped and recomputed (hit "
+                 f"{rec.prefix_hit})")
+        bf16_gap(rec_task.logits, flood_logits[2], "recomputed vs cold")
+
+        # 6. copy times against promote_seconds, and the census
+        for kind in ("demote", "spill", "promote"):
+            ts = np.asarray(job_times.get(kind, [0.0])) * 1e3
+            print(f"  {kind}: {len(job_times.get(kind, []))} blocks of "
+                  f"{block_mb:.1f} MB, ms per block p50 {np.median(ts):.2f} "
+                  f"mean {ts.mean():.2f} max {ts.max():.2f}")
+        print(f"  promote_seconds per block (host_bw 25e9, disk_bw 3e9, "
+              f"without the per-call latency): host "
+              f"{kv.promote_seconds(bs) * 1e3 - kv.host_latency * 1e3:.3f} ms"
+              f", disk {kv.promote_seconds(0, bs) * 1e3 - kv.disk_latency * 1e3:.3f}"
+              f" ms; A's promotion predicted "
+              f"{kv.promote_seconds(tiers[1], tiers[2]) * 1e3:.1f} ms, its "
+              f"{len(promote_s)} copy jobs took "
+              f"{sum(promote_s) * 1e3:.1f} ms in all")
+        if not kv._engine.drain(300.0):
+            fail("the copy engine did not drain")
+        acct = kv.accounting()
+        print(f"  tier_stats {json.dumps(kv.tier_stats())}; accounting "
+              f"(free, live, cached, total) {acct}", flush=True)
+        if acct[0] + acct[1] + acct[2] != acct[3] or acct[1] != 0 \
+                or kv.tier_stats()["in_flight"]:
+            fail(f"the tiered pool does not balance: {acct}")
+    finally:
+        inst.shutdown()
+    del inst, kv, snap
+
+    # 7. serve the launcher's mix through build(prefix_share=True)
+    ops.reset_counts()
+    rep = serve_trace(dep, requests=6, seed=0)
+    counts = ops.counts()
+    print(f"serve through build(prefix_share=True): {rep['n_requests']} "
+          f"requests, decoded {rep['decoded']}, attainment "
+          f"{rep['slo_attainment']:.3f}; prefix hits={rep['prefix_hits']} "
+          f"({rep['prefix_hit_tokens']} prompt tokens served from cache)")
+    print(f"launches since reset: {json.dumps(counts)}", flush=True)
+    if rep["decoded"] != rep["n_requests"]:
+        fail(f"prefix serve decoded {rep['decoded']} of {rep['n_requests']}")
+    if rep["prefix_hits"] <= 0:
+        fail("the prefix serve had no prefix hit")
+    if counts["flash_prefill_attention"] <= 0 or \
+            counts["flash_prefill_wgmma"] != counts["flash_prefill_attention"]:
+        fail(f"{counts['flash_prefill_attention']} prefill launches in the "
+             f"prefix serve, {counts['flash_prefill_wgmma']} on the "
+             "tensor-core body")
+    for name in ("chunked_prefill_attention_ref", "decode_attention_ref",
+                 "verify_attention_ref"):
+        if counts[name]:
+            fail(f"the plain {name} ran on the prefix serve path")
+    return counts
+
+
+def port_request(n):
+    from repro_torch.core import Request
+    return Request(num_tokens=n, slo=600.0, arrival=time.monotonic())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -706,6 +977,20 @@ def main() -> None:
             qpos = qoff + torch.arange(Sq, device=dev)[:, None]
             kpos = torch.arange(T, device=dev)[None, :]
             mask = (kpos <= qpos) & (kpos < kv_len)
+            if label in COLD_PREFILL:
+                row = timed(
+                    name, (1, T, K, hd),
+                    prefill_work(1, Sq, H, K, hd, qoff, kv_len, es),
+                    kernel=lambda k, v: flash_prefill_attention(
+                        q, k, v, qoff, kv_len),
+                    plain=lambda k, v: ref.chunked_prefill_attention_ref(
+                        q, k, v, q_offset=qoff, kv_len=kv_len),
+                    library=lambda k, v: F.scaled_dot_product_attention(
+                        qt, k.transpose(1, 2), v.transpose(1, 2),
+                        attn_mask=mask, enable_gqa=True))
+                row["max_abs_err"] = err
+                record[name] = row
+                continue
             row = dict(
                 ms=cuda_ms(torch, lambda: flash_prefill_attention(
                     q, k, v, qoff, kv_len)),
@@ -1003,6 +1288,18 @@ def main() -> None:
         fail(f"the spec serve launched the verify kernel {n_verify} times "
              f"in {rep['spec']['spec_steps']} verify steps")
 
+    # --- 9. prefix sharing and KV tiers at full width ------------------------
+    del dep
+    torch.cuda.empty_cache()
+    phase("9. prefix sharing and KV tiers: Llama3-8B, published width, bf16")
+    dep = build_deployment(full_config=True, max_seq=4096, chunk=512,
+                           decode_tokens=8, decode_max_batch=4, seed=0,
+                           device="cuda", prefix_share=True)
+    try:
+        prefix_counts = prefix_phase(torch, np, ops, dep, dep.cfg)
+    finally:
+        dep.shutdown()
+
     kernels = []
     for name, route, src, replaces, main in (
             ("flash_prefill_attention", "cuda",
@@ -1015,8 +1312,9 @@ def main() -> None:
              "src/repro_torch/kernels/csrc/decode_attn.cu",
              "src/repro/kernels/decode_attn.py:129", MAIN_VERIFY)):
         row = record[f"{name} {main}"]
-        launches = serve_counts[name] if name == "flash_verify_attention" \
-            else counts[name]
+        launches = {"flash_prefill_attention": prefix_counts,
+                    "flash_decode_attention": counts,
+                    "flash_verify_attention": serve_counts}[name][name]
         kernels.append({"name": name, "route": route, "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],

@@ -3,7 +3,7 @@ one device and serve the reference launcher's request mix.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full-config \
         --requests 6 --policy s-edf [--granularity op] [--chunk 512] \
-        [--spec-decode --draft-k 4]
+        [--spec-decode --draft-k 4] [--prefix-share]
 
 `--full-config` serves Llama3-8B at its published width in bf16 with random
 weights drawn from `--seed`; without it, the tiny config. `--device`
@@ -74,11 +74,15 @@ def build(*, arch: str = "llama3_8b", full_config: bool = False,
           batch_budget: int = 4096, max_seq: int = 4096,
           decode_tokens: int = 4, decode_max_batch: int = 4, seed: int = 0,
           device="cuda", dtype: Optional[torch.dtype] = None,
-          spec_decode: bool = False, draft_k: int = 4) -> Deployment:
+          spec_decode: bool = False, draft_k: int = 4,
+          prefix_share: bool = False,
+          prefix_cache_blocks: int = 512) -> Deployment:
     """Random weights, the TTFT profile and predictor, one prefill and one
     decode instance behind a Proxy. ``dtype`` defaults to bf16 on the card
     and f32 on the CPU. ``spec_decode``/``draft_k`` go to the decode
-    instance (the self-drafting n-gram drafter)."""
+    instance (the self-drafting n-gram drafter); ``prefix_share`` /
+    ``prefix_cache_blocks`` give the prefill instance its prefix-sharing
+    KV cache of that many 128-token blocks."""
     dev = resolve_device(device)
     cfg = get_config(arch) if full_config else get_tiny_config(arch)
     if dtype is None:
@@ -94,7 +98,8 @@ def build(*, arch: str = "llama3_8b", full_config: bool = False,
     core = SchedulerCore(predictor=pred, policy=policy,
                          batch_budget=batch_budget)
     inst = PrefillInstance(params, cfg, core, max_seq=max_seq,
-                           executor=executor)
+                           executor=executor, prefix_share=prefix_share,
+                           prefix_cache_blocks=prefix_cache_blocks)
     dmb = decode_max_batch if supports_ragged_decode(cfg) else 1
     dec = DecodeInstance(params, cfg, decode_tokens=decode_tokens,
                          decode_max_batch=dmb, spec_decode=spec_decode,
@@ -110,12 +115,18 @@ def serve_trace(dep: Deployment, *, requests: int = 12, seed: int = 0,
     """Submit `requests` prompts from the reference launcher's mix (70%
     256-token text at a 1.5 s TTFT SLO, 20% max_seq/2-token search at 15 s,
     10% max_seq-token file at 25 s) with exponential inter-arrival gaps,
-    drain, and return `Proxy.report()` plus the decoded count."""
+    drain, and return `Proxy.report()` plus the decoded count. With a
+    prefix-sharing prefill instance, each task class first gets a template
+    of half its tokens, and each prompt is its class's template plus a
+    random tail, so repeat submissions hit the prefix cache."""
     cfg, proxy = dep.cfg, dep.proxy
     max_seq = dep.executor.max_seq
     rng = np.random.default_rng(seed)
     mix = [(256, 1.5, "text", 0.7), (max_seq // 2, 15.0, "search", 0.2),
            (max_seq, 25.0, "file", 0.1)]
+    templates = {task: rng.integers(0, cfg.vocab_size, tokens // 2)
+                 for tokens, _, task, _ in mix} \
+        if dep.prefill.kv is not None else {}
     for _ in range(requests):
         r = rng.random()
         acc = 0.0
@@ -125,7 +136,9 @@ def serve_trace(dep: Deployment, *, requests: int = 12, seed: int = 0,
                 break
         req = Request(num_tokens=tokens, slo=slo, task_type=task,
                       arrival=time.monotonic())
-        proxy.submit(req, rng.integers(0, cfg.vocab_size, tokens))
+        template = templates.get(task, np.zeros(0, np.int64))
+        tail = rng.integers(0, cfg.vocab_size, tokens - len(template))
+        proxy.submit(req, np.concatenate([template, tail]))
         time.sleep(float(rng.exponential(arrival_mean_s)))
     if not proxy.drain(drain_timeout):
         raise RuntimeError(f"drain timed out after {drain_timeout}s: "
@@ -156,7 +169,13 @@ def main(argv=None):
                     help="continuous-batching decode slot cap (families "
                     "without a dense per-layer KV cache fall back to 1)")
     ap.add_argument("--prefix-share", action="store_true",
-                    help="prefix-sharing prompt KV cache (not ported yet)")
+                    help="prefix-sharing prompt KV cache: each task class's "
+                    "prompts share a template of half their tokens, which "
+                    "is served from cache after the first and prefilled "
+                    "suffix-only")
+    ap.add_argument("--prefix-cache-blocks", type=int, default=512,
+                    help="prefix cache capacity in 128-token KV blocks "
+                    "(with --prefix-share)")
     ap.add_argument("--spec-decode", action="store_true",
                     help="speculative decoding: the self-drafting n-gram "
                     "drafter and one batched k+1-position verify pass per "
@@ -167,8 +186,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.prefix_share:
-        ap.error("--prefix-share: prefix sharing is not ported yet")
 
     dep = build(arch=args.arch, full_config=args.full_config,
                 policy=args.policy, granularity=args.granularity,
@@ -176,7 +193,8 @@ def main(argv=None):
                 max_seq=args.max_seq, decode_tokens=args.decode_tokens,
                 decode_max_batch=args.decode_max_batch, seed=args.seed,
                 device=args.device, spec_decode=args.spec_decode,
-                draft_k=args.draft_k)
+                draft_k=args.draft_k, prefix_share=args.prefix_share,
+                prefix_cache_blocks=args.prefix_cache_blocks)
     dev = dep.executor.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"serving {dep.cfg.name} ({dep.cfg.family}) on {name} "
@@ -199,6 +217,10 @@ def main(argv=None):
                   f"tokens/step={sp['tokens_per_step']:.2f} "
                   f"(drafted {sp['draft_proposed']}, "
                   f"accepted {sp['draft_accepted']})")
+        if args.prefix_share:
+            print(f"prefix hits={rep['prefix_hits']} "
+                  f"({rep['prefix_hit_tokens']} prompt tokens served "
+                  f"from cache)")
     finally:
         dep.shutdown()
 

@@ -16,8 +16,9 @@ kernel on the card.
 
 Each segment records a CUDA event after its work (`PrefillTask.sync_token`)
 so the Execution Pool can bound how far the host runs ahead of the card.
-Resuming over a cached prompt prefix (`prefix_len`) belongs to prefix
-sharing, which is not ported yet.
+A prefill may resume over a cached prompt prefix (`start(prefix_len=P)`,
+prefix sharing): the cache rows below P are seeded and the chunk loop
+starts at operator offset P, so the kernel reads the seeded prefix.
 """
 from __future__ import annotations
 
@@ -211,35 +212,45 @@ class SegmentedPrefill:
             * self._segments_per_chunk + 1                          # +head
 
     # --- lifecycle -------------------------------------------------------------
-    def start(self, tokens, lens=None, prefix_len: int = 0) -> PrefillTask:
+    def start(self, tokens, lens=None, prefix_len: int = 0, prefix_k=None,
+              prefix_v=None) -> PrefillTask:
         """Begin a prefill of `tokens` (B, S), padded rows of true lengths
         `lens` (default S each). Allocates the task's (L, B, max_seq, K, hd)
-        KV cache on the current stream."""
-        if prefix_len:
-            raise NotImplementedError(
-                "prefix resumption belongs to prefix sharing, not ported yet")
+        KV cache on the current stream.
+
+        ``prefix_len > 0`` resumes over a cached prompt prefix: `prefix_k` /
+        `prefix_v` (L, B, prefix_len, K, hd) seed the first positions of the
+        cache (cast to `cache_dtype`, on the current stream) and the chunk
+        loop starts at operator offset `prefix_len` — suffix-only compute.
+        Requires prefix_len < S: the last token's logits need a live pass."""
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
         B, S = tokens.shape
         cfgc = self.cfg
         K, hd = cfgc.num_kv_heads, cfgc.resolved_head_dim
         shape = (cfgc.num_layers, B, self.max_seq, K, hd)
+        kc = torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
+        vc = torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
+        if prefix_len:
+            if prefix_len >= S:
+                raise ValueError(f"prefix_len={prefix_len} must leave at "
+                                 f"least one live token (prompt {S})")
+            kc[:, :, :prefix_len] = prefix_k
+            vc[:, :, :prefix_len] = prefix_v
         state: State = {
             "tokens": tokens,
             # host ints: the head and the KV handoff index rows with them
             "lens": [S] * B if lens is None else [int(n) for n in lens],
             "h": None,                    # set per chunk
             "tmp": None,
-            "k_cache": torch.zeros(shape, dtype=self.cache_dtype,
-                                   device=self.device),
-            "v_cache": torch.zeros(shape, dtype=self.cache_dtype,
-                                   device=self.device),
+            "k_cache": kc,
+            "v_cache": vc,
             "h_full": torch.zeros((B, S, cfgc.d_model), dtype=torch.float32,
                                   device=self.device),
         }
-        chunk = self.chunk_tokens or S
-        return PrefillTask(state=state, prompt_len=S, start_offset=0,
-                           n_chunks=self.n_chunks(S), chunk=chunk,
-                           total_segments=self.segments_for(S))
+        chunk = self.chunk_tokens or (S - prefix_len)
+        return PrefillTask(state=state, prompt_len=S, start_offset=prefix_len,
+                           n_chunks=self.n_chunks(S, prefix_len), chunk=chunk,
+                           total_segments=self.segments_for(S, prefix_len))
 
     def _chunk_bounds(self, task: PrefillTask, chunk_idx: int) -> Tuple[int, int]:
         lo = task.start_offset + chunk_idx * task.chunk

@@ -152,8 +152,6 @@ class DecodeInstance:
             raise ValueError(
                 f"spec_decode needs the batched verify step, unsupported "
                 f"for family {cfg.family!r}")
-        if prefix_share:
-            raise NotImplementedError("prefix sharing is not ported yet")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device
@@ -166,6 +164,11 @@ class DecodeInstance:
             else preempt)
         self.step_pred = step_predictor
         self.kv_block_size = kv_block_size
+        self.prefix_share = prefix_share   # pool created in share mode:
+                                           # free() decrements refcounts and
+                                           # parks trie-registered blocks in
+                                           # the LRU cache instead of eagerly
+                                           # freeing
         self.kv_max_blocks = kv_max_blocks  # admission-growth cap (0 = un-
                                             # bounded): a leak then surfaces
                                             # as declined admissions
@@ -580,7 +583,9 @@ class DecodeInstance:
             blocks = max((2 * self.decode_max_batch + 1) * need_blocks + 1, 8)
             self.kv = PagedKVCache(L_, blocks, self.kv_block_size, K, hd,
                                    dtype=k.dtype, device=self.device,
-                                   max_blocks=self.kv_max_blocks)
+                                   prefix_share=self.prefix_share,
+                                   max_blocks=self.kv_max_blocks,
+                                   stream=self.stream)
             # scratch sequence: the slot padding rows of the batched step
             # write into / gather from (never read through a kv_len mask)
             self.kv.allocate(_SCRATCH_SEQ, 1)
@@ -776,6 +781,9 @@ class DecodeInstance:
                 self._finish(j, now)
                 self._resident.pop(rid, None)
                 with self._kv_lock:
+                    # a refcount DECREMENT, not an eager free, on a
+                    # prefix-sharing pool: blocks other streams still
+                    # reference stay live
                     if self.kv is not None:
                         self.kv.free(rid)
                 self._in_pool.discard(rid)

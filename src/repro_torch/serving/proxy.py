@@ -15,6 +15,14 @@ dispatch from each decode instance's live backlog. When the wired predictor
 exposes `observe()` (OnlineTTFTPredictor), the proxy feeds measured prefill
 latencies back on every completion — online refit against real hardware.
 
+Prefix affinity: with a `needs_prefix` policy (``dispatch="prefix-
+affinity"``) each dispatch decision probes every instance's prefix-sharing
+KV cache for the arriving prompt (`PrefillInstance.probe_prefix`) and
+attaches the hit plus its predictor-priced `ttft_saved` to the load
+snapshot, so requests route to the instance already holding their prefix KV
+unless its queue pressure outweighs the recompute saved
+(docs/SCHEDULING.md).
+
 Decode migration (``decode_migration=True``, needs `decode_cost`): after each
 handoff the proxy re-plans with the SAME cost-gated planner the cluster
 simulator uses (`repro_torch.core.dispatch.plan_decode_migrations`) and moves
@@ -26,9 +34,7 @@ conservative and consistent with the simulated ones (docs/SCHEDULING.md).
 Counterpart of src/repro/serving/proxy.py, the same code on torch tensors:
 the handoff passes each request's cache row as a view of the prefill's KV
 with the event after its last write. The report's ``spec`` key carries the
-speculative-decoding counters (all zeros with spec off). Prefix-affinity
-dispatch, which probes each instance's prefix-sharing KV, waits for the
-slice that ports prefix sharing; asking for a `needs_prefix` policy raises.
+speculative-decoding counters (all zeros with spec off).
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import numpy as np
 from repro_torch.core.dispatch import (DispatchPolicy, InstanceLoad,
                                        competing_tokens, make_dispatch,
                                        plan_decode_migrations, predicted_ttft)
+from repro_torch.core.prefixcache import block_keys
 from repro_torch.core.metrics import (attainment_by_task, percentile_report,
                                       slo_attainment, tbt_stats, ttft_stats)
 from repro_torch.core.predictor import TTFTPredictor
@@ -86,10 +93,6 @@ class Proxy:
             sched = getattr(prefill_instances[0], "scheduler", None)
             predictor = getattr(sched, "predictor", None)
         self.dispatch = make_dispatch(dispatch, predictor)
-        if self.dispatch.needs_prefix:
-            raise NotImplementedError(
-                f"dispatch {self.dispatch.name!r} needs prefix sharing, "
-                "not ported yet")
         if capacities is not None and len(capacities) != \
                 len(prefill_instances):
             raise ValueError("capacities length must match prefill_instances")
@@ -189,10 +192,34 @@ class Proxy:
         load = dec.snapshot_load(prefill_idx, self.decode_cost.step_time)
         return load.effective_step(1, float(req.num_tokens)) / req.tbt_slo
 
-    def _snapshot_loads(self, req: Request, now: float) -> List[InstanceLoad]:
+    def _ttft_saved(self, idx: int, req: Request, hit: int) -> float:
+        """Predicted prefill seconds instance `idx`'s cached prefix would
+        save this request: predictor-priced recompute of the hit tokens,
+        falling back to capacity-normalized tokens (same units as drain
+        time) when no predictor is wired."""
+        return self._saved_seconds(idx, req.num_tokens, 0, hit)
+
+    def _saved_seconds(self, idx: int, n: int, warm: int,
+                       extra: int) -> float:
+        """Predicted prefill seconds that `extra` additional cached tokens
+        save, on top of `warm` tokens already served cached — the marginal
+        value of a cold (tiered) run is priced from the warm baseline, not
+        from zero."""
+        if extra <= 0:
+            return 0.0
+        predict = getattr(self.dispatch.predictor, "predict", None)
+        if predict is not None:
+            return max(predict(n - warm) - predict(n - warm - extra), 0.0)
+        return extra / max(self.capacities[idx], 1e-9)
+
+    def _snapshot_loads(self, req: Request, now: float,
+                        tokens=None) -> List[InstanceLoad]:
         """Per-instance competing-work snapshots for one dispatch decision
         (see repro_torch.core.dispatch). Remaining tokens come from the requests'
-        own progress counters, which the instances update as ops complete."""
+        own progress counters, which the instances update as ops complete.
+        Prefix-affinity policies additionally get each instance's cached-
+        prefix hit for THIS prompt (`PrefillInstance.probe_prefix`) and its
+        predictor-priced ttft_saved."""
         if not (self.dispatch.needs_loads or self.shed_policy != "off"):
             # admission control needs a real backlog view even under
             # load-oblivious dispatch (round-robin) — same forcing as
@@ -201,17 +228,58 @@ class Proxy:
                     for i in range(len(self._outstanding))]
         predict = getattr(self.dispatch.predictor, "predict", None)
         want_pressure = self.dispatch.needs_decode_pressure
+        want_prefix = self.dispatch.needs_prefix and tokens is not None
+        keys_by_bs: dict = {}
+        if want_prefix:
+            # hash the prompt ONCE per block size (instances normally share
+            # one); each instance then only walks its trie
+            tokens = np.asarray(tokens)
+            for inst in self.prefill_instances:
+                bs = inst.kv_block_size
+                if bs not in keys_by_bs:
+                    keys_by_bs[bs] = block_keys(tokens, bs)
         loads = []
         for i, outstanding in enumerate(self._outstanding):
             items = [(max(r.remaining_tokens(), 0.0), r.deadline)
                      for r in outstanding.values()]
+            inst = self.prefill_instances[i]
+            hit = cold = 0
+            saved = promote_s = 0.0
+            if want_prefix:
+                inst_keys = keys_by_bs[inst.kv_block_size]
+                n = int(tokens.size)
+                probe_tiers = getattr(inst, "probe_keys_tiers", None)
+                if probe_tiers is not None:
+                    # tier-aware affinity: warm tokens are free, cold ones
+                    # pay the promotion copy — the load carries the NET
+                    # saving so warm/cold/absent are three prices to the
+                    # policy, and an unprofitable cold run contributes
+                    # nothing (the instance will recompute it)
+                    warm, host_t, disk_t = probe_tiers(inst_keys, n)
+                    cold = host_t + disk_t
+                    hit = warm
+                    saved = self._saved_seconds(i, n, 0, warm)
+                    if cold > 0:
+                        promote_s = inst.promote_seconds(host_t, disk_t)
+                        net = self._saved_seconds(i, n, warm, cold) \
+                            - promote_s
+                        if net > 0:
+                            saved += net
+                            hit = warm + cold
+                else:
+                    hit = inst.probe_keys(inst_keys, n)
+                    saved = self._ttft_saved(i, req, hit)
             loads.append(InstanceLoad(
                 instance_id=i,
                 queued_tokens=competing_tokens(items, req, now, predict),
                 n_outstanding=len(outstanding),
                 capacity=self.capacities[i],
                 decode_pressure=self._decode_pressure(i, req)
-                if want_pressure else 0.0))
+                if want_pressure else 0.0,
+                prefix_hit=hit,
+                ttft_saved=saved,
+                prefix_hit_cold=cold,
+                promote_time=promote_s))
         return loads
 
     def submit(self, req: Request, tokens: np.ndarray) -> None:
@@ -228,7 +296,7 @@ class Proxy:
             # letting it queue, miss, and poison the p99 tail. Stranded-
             # then-recovered requests are never shed.
             with self._load_lock:
-                loads = self._snapshot_loads(req, now)
+                loads = self._snapshot_loads(req, now, tokens)
                 loads = [ld for ld in loads
                          if ld.instance_id not in self._down]
             if loads:
@@ -260,8 +328,8 @@ class Proxy:
                 # prefilling now would only strand the handoff: every decode
                 # instance is down, so hold the request until one rejoins
                 return False
-            loads = self._snapshot_loads(req, now)
-            live =[ld for ld in loads if ld.instance_id not in self._down]
+            loads = self._snapshot_loads(req, now, tokens)
+            live = [ld for ld in loads if ld.instance_id not in self._down]
             if not live:
                 return False
             idx = self.dispatch.select(req, live, now)
@@ -734,6 +802,13 @@ class Proxy:
             # latencies multi-token steps split apart — per-accepted-token
             # TBT (tbt_samples) vs per-step wall latency (step_samples)
             "spec": self._spec_report(),
+            "prefix_hits": sum(getattr(i, "prefix_hits", 0)
+                               for i in self.prefill_instances),
+            "prefix_hit_tokens": sum(getattr(i, "prefix_hit_tokens", 0)
+                                     for i in self.prefill_instances),
+            "prefix_promoted_tokens": sum(
+                getattr(i, "prefix_promoted_tokens", 0)
+                for i in self.prefill_instances),
             "scheduling_rounds": sum(i.scheduling_rounds
                                      for i in self.prefill_instances),
             "blocking_mean": float(np.mean(

@@ -17,14 +17,17 @@ split-KV decode/verify body in bf16 feed bf16 operands to the tensor cores
 with f32 sums and split P into two bf16 terms, which keeps them inside the
 same bf16 limit.
 """
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.prefixcache import block_keys, chain_extend
 from repro_torch.kernels import counts, ops, ref
 from repro_torch.kernels.decode_attn import (BODY, MAX_ROWS, SPLIT_KEYS,
                                              flash_decode_attention,
                                              flash_verify_attention)
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
+from repro_torch.serving.kvcache import PagedKVCache, raw_bytes
 
 pytestmark = pytest.mark.cuda
 
@@ -353,3 +356,149 @@ def test_decode_and_verify_launch_one_body(card):
     assert counts.read([BODY, "flash_verify_attention"]) == {
         BODY: 2, "flash_verify_attention": 1}
     counts.reset()
+
+
+# --- prefix sharing and the KV tiers on the card -----------------------------
+
+
+@pytest.mark.parametrize("case", [(1, 1, 4096, 4095, None),
+                                  (1, 512, 4096, 2048, 2560)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_resumed_over_a_cached_prefix(card, case, dtype):
+    """The attn operator after a prefix hit at Llama3-8B's heads: one query
+    row at q_offset n - 1 (a fully cached prompt) and a 512-token chunk at
+    a 128-aligned q_offset, against the plain version; bf16 on the
+    tensor-core body."""
+    B, Sq, T, qoff, kv_len = case
+    H, K, hd = 32, 8, 128
+    gen = torch.Generator(device=card).manual_seed(7)
+    q = _randn((B, Sq, H, hd), dtype, gen, card)
+    k = _randn((B, T, K, hd), dtype, gen, card)
+    v = _randn((B, T, K, hd), dtype, gen, card)
+    ops.reset_counts()
+    got = flash_prefill_attention(q, k, v, qoff, kv_len)
+    torch.cuda.synchronize()
+    assert ops.counts()["flash_prefill_wgmma"] == int(dtype == torch.bfloat16)
+    want = ref.chunked_prefill_attention_ref(
+        q, k, v, q_offset=qoff, kv_len=T if kv_len is None else kv_len)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _share_ops(device, dtype):
+    """Share-mode pool ops on one device: a cached prompt, a second prompt
+    that hits its first two blocks and writes its suffix from a
+    block-aligned start, copy-on-write through `write` and `write_tokens`,
+    and the gathers."""
+    cache = PagedKVCache(2, 16, 4, 2, 8, dtype, device=device,
+                         prefix_share=True)
+    rng = np.random.default_rng(11)
+
+    def kv(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=dtype)
+
+    toks = np.arange(12)
+    keys = block_keys(toks, 4)
+    cache.allocate(0, 12, keys=keys)
+    cache.write_prompt(0, kv(2, 12, 2, 8), kv(2, 12, 2, 8))
+    cache.insert(0, keys)
+    keys2 = block_keys(np.concatenate([toks[:8], np.arange(50, 60)]), 4)
+    assert cache.allocate(1, 18, keys=keys2).length == 8
+    cache.write_prompt(1, kv(2, 10, 2, 8), kv(2, 10, 2, 8), start=8)
+    cache.allocate(2, 12, keys=keys)
+    cache.write(2, 5, kv(2, 2, 8), kv(2, 2, 8))          # copy-on-write
+    cache.write_tokens([1, 2], [3, 10], kv(2, 2, 2, 8), kv(2, 2, 2, 8))
+    out = [cache.gather(s)[:2] for s in (0, 1, 2)]
+    out.append(cache.gather_batch([0, 1, 2])[:2])
+    tables = [list(cache.table(s).blocks) for s in (0, 1, 2)]
+    return cache, out, tables
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_share_mode_pool_on_the_card_matches_the_cpu(card, dtype):
+    gpu, g_out, g_tables = _share_ops(card, dtype)
+    cpu, c_out, c_tables = _share_ops("cpu", dtype)
+    torch.cuda.synchronize()
+    assert g_tables == c_tables
+    for g, c in zip(g_out, c_out):
+        for a, b in zip(g, c):
+            assert torch.equal(a.cpu(), b)
+    assert torch.equal(gpu.k_pool.cpu(), cpu.k_pool)
+    assert torch.equal(gpu.v_pool.cpu(), cpu.v_pool)
+    assert gpu.accounting() == cpu.accounting()
+
+
+_CHAINS = [chain_extend((), range(8), salt=s) for s in range(4)]
+
+
+def _cache_prompt(cache, sid, keys, seed):
+    t = cache.allocate(sid, 16, keys=keys)
+    gen = torch.Generator(device=cache.device).manual_seed(seed)
+    with torch.cuda.stream(cache.stream):
+        k = _randn((2, 16, 2, 64), cache.k_pool.dtype, gen, cache.device)
+        cache.write_prompt(sid, k, k * 2, start=t.length)
+    cache.insert(sid, keys)
+    cache.free(sid)
+
+
+def test_bf16_tier_round_trip_on_the_card(card):
+    """A bf16 block demoted through host and disk and promoted back is
+    `torch.equal` to the block at demotion."""
+    cache = PagedKVCache(2, 4, 4, 2, 64, torch.bfloat16, device=card,
+                         prefix_share=True, host_cache_blocks=8,
+                         disk_cache_blocks=16, stream=torch.cuda.Stream())
+    try:
+        keys = _CHAINS[0][:4]
+        _cache_prompt(cache, 0, keys, seed=1)
+        with torch.cuda.stream(cache.stream):
+            want = {k: (cache.k_pool[:, b].clone(), cache.v_pool[:, b].clone())
+                    for k, b in cache._mgr._trie.items()}
+        for i in (1, 2, 3):
+            _cache_prompt(cache, i, _CHAINS[i][:4], seed=1 + i)
+        assert cache._engine.drain(30.0)
+        _, host_t, disk_t = cache.probe_tiers(keys)
+        assert host_t + disk_t == 16 and disk_t > 0
+        ticket = cache.promote_async(keys)
+        assert ticket.wait(30.0)
+        assert cache.promote_settle(ticket) == 4
+        cache.stream.synchronize()
+        for k in keys:
+            b = cache._mgr._trie[k]
+            assert torch.equal(cache.k_pool[:, b], want[k][0])
+            assert torch.equal(cache.v_pool[:, b], want[k][1])
+    finally:
+        cache.close()
+
+
+def test_demoted_block_overwritten_at_once_keeps_its_bytes(card):
+    """The stale-KV test. The pool's stream is held busy, a prompt's four
+    blocks are demoted (a new prompt takes them) and overwritten on that
+    stream at once; after the engine drains, each host copy holds the
+    block's bytes at demotion. A snapshot that is a view, or a copy that
+    does not wait for the pool's stream, stores other bytes."""
+    stream = torch.cuda.Stream()
+    cache = PagedKVCache(2, 4, 4, 2, 64, torch.bfloat16, device=card,
+                         prefix_share=True, host_cache_blocks=8,
+                         stream=stream)
+    try:
+        keys = _CHAINS[0][:4]
+        _cache_prompt(cache, 0, keys, seed=1)
+        with torch.cuda.stream(stream):
+            want = {k: (raw_bytes(cache.k_pool[:, b]).cpu().numpy(),
+                        raw_bytes(cache.v_pool[:, b]).cpu().numpy())
+                    for k, b in cache._mgr._trie.items()}
+            torch.cuda._sleep(100_000_000)     # the clones queue behind it
+            cache.allocate(1, 16)              # demotes all four blocks
+            cache.write_prompt(1, torch.full((2, 16, 2, 64), 7.0,
+                                             device=card),
+                               torch.full((2, 16, 2, 64), 9.0,
+                                          device=card))
+        assert cache._engine.drain(30.0)
+        for k, (wk, wv) in want.items():
+            k_raw, v_raw, _, dtype = cache._host_store[k]
+            assert dtype == "bfloat16"
+            assert np.array_equal(k_raw, wk) and np.array_equal(v_raw, wv)
+        stream.synchronize()
+        assert (cache.k_pool == 7.0).all() and (cache.v_pool == 9.0).all()
+    finally:
+        cache.close()

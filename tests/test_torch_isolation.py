@@ -17,6 +17,7 @@ COPIED = [
     "core/__init__.py", "core/request.py", "core/events.py",
     "core/preemption.py", "core/predictor.py", "core/scheduler.py",
     "core/metrics.py", "core/dispatch.py", "core/prefixcache.py",
+    "core/tieredcache.py",
     "configs/base.py", "configs/llama3_8b.py",
 ]
 

@@ -116,10 +116,3 @@ def test_matches_jax_segmented_prefill(dense_setup):
     for key in ("k_cache", "v_cache"):
         np.testing.assert_allclose(task.state[key].numpy(),
                                    np.asarray(jtask.state[key]), **tol)
-
-
-def test_prefix_resume_not_ported(dense_setup):
-    _, _, params, tokens = dense_setup
-    ex = SegmentedPrefill(params, CFG, max_seq=S)
-    with pytest.raises(NotImplementedError):
-        ex.start(tokens, prefix_len=16)

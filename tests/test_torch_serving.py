@@ -89,8 +89,10 @@ def test_pool_grow_preserves_data_and_free_accounting():
     ks, _, ln = cache.gather(0)
     assert ln == 8 and ks[:, :8].sum().item() == 8 * 8
     assert cache.accounting() == (cache.free_blocks, 2, 0, 8)
-    with pytest.raises(NotImplementedError):
-        PagedKVCache(1, 4, 4, 1, 8, device="cpu", prefix_share=True)
+    shared = PagedKVCache(1, 4, 4, 1, 8, device="cpu", prefix_share=True)
+    shared.allocate(0, 8)
+    shared.grow(4)
+    assert shared.accounting() == (6, 2, 0, 8)
 
 
 # --- decode workers against a sequential replay -----------------------------
@@ -518,14 +520,6 @@ def test_pd_pipeline_with_decode(served_model):
         assert proxy.report()["n_requests"] == 3
     finally:
         proxy.shutdown()
-
-
-def test_proxy_refuses_prefix_affinity_dispatch():
-    """Prefix-affinity routes on each instance's prefix-sharing KV, which
-    this port does not have yet: asking for it raises instead of silently
-    routing as decode-aware."""
-    with pytest.raises(NotImplementedError, match="prefix sharing"):
-        Proxy([object()], dispatch="prefix-affinity")
 
 
 # --- greedy trajectory against the JAX model functions -----------------------
