@@ -35,8 +35,10 @@ Phases; the first failure exits non-zero and prints no result:
     as a measurement fault.
  3. model: the tiny Llama3-8B config in f32, prefill logits and a ragged
     decode step on the card against the same functions on the CPU (2e-4),
-    and one speculative-decoding run on the card whose tokens must equal
-    the CPU's.
+    one speculative-decoding run on the card whose tokens must equal the
+    CPU's, and three concurrent requests through a `HybridInstance`
+    (prefill and local decode on one worker) whose tokens must equal the
+    CPU's, through the two kernels alone.
  4. deployment: `repro_torch.launch.serve.build` at Llama3-8B's published
     width in bf16 with random weights, and its TTFT profile.
  5. preemption: a 2048-token prompt at operator granularity, suspended at
@@ -88,9 +90,29 @@ Phases; the first failure exits non-zero and prints no result:
     launcher's mix through the deployment (templated prompts): prefix hits
     > 0, every prefill launch on the tensor-core body, no plain version;
     those launches are the prefill kernel's count in the kernels' record.
+10. colocation at full width (fig24's real panel,
+    benchmarks/fig24_colocation.py:110-197), on phase 9's weights: first
+    `profile_step_times` at B 1/2/4, ctx 1024. A dedicated `DecodeInstance`
+    decodes 4 streams x 32 tokens from 1024-token handoffs twice (warm-up,
+    then measured); its median step sets the TBT SLO (5x) and the weave
+    cadence (2x). A `HybridInstance` (chunk 512, budget 2048, decode batch
+    4, no prefix sharing, a 128-block pool) prefills the same 4 prompts
+    itself and decodes them; once all 4 are resident it takes 6
+    prefill-only requests of 2048 tokens. Three such passes: a warm-up, one
+    under `torch.profiler` (the device's idle share), one measured with the
+    launch counters zeroed before it. Prints TBT p50/p90/max and SLO
+    attainment of both instances and their ratio, the hybrid's rounds,
+    decode steps, preemptions and the prefill-only TTFTs. Fails if the
+    flood does not grow the pool or a block from before a growth differs
+    from its snapshot, if `prefill_tc_kernel` (every prefill launch) or the
+    split-KV body did not launch in the measured pass or a plain version
+    ran, or if a stream's tokens differ from the dedicated instance's on
+    the same prompt, unless phase 8's near-tie rule explains it (both
+    runs' step logits are recorded as they run).
 
-The line before the last holds the kernels' record; the last line is
-`{"ok": true, "device": {...}}`.
+The line before the last holds the kernels' record: each kernel's launches
+by path (each path's counters zeroed just before it ran) and their sum; the
+last line is `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -771,6 +793,254 @@ def prefix_phase(torch, np, ops, dep, cfg):
     return counts
 
 
+def run_hybrid(params, cfg, prompts, out_tokens, **kw):
+    """Serve every prompt at once through a `HybridInstance` (prefill and
+    local decode of `out_tokens` tokens); returns the instance and each
+    prompt's emitted tokens (first token, then the decoded ones)."""
+    from repro_torch.core import Request
+    from repro_torch.serving.hybrid_instance import HybridInstance
+    inst = HybridInstance(params, cfg, **kw)
+    try:
+        reqs = []
+        for toks in prompts:
+            reqs.append(Request(num_tokens=len(toks), slo=600.0,
+                                arrival=time.monotonic(),
+                                output_tokens=out_tokens, tbt_slo=100.0))
+            inst.submit(reqs[-1], toks)
+        drained = inst.drain(600.0)
+    finally:
+        inst.shutdown()
+    if not inst.healthy or not drained:
+        fail(f"the hybrid instance did not drain ({inst.last_error!r})")
+    got = {j.request.rid: j.emitted for j in inst.finished_jobs}
+    return inst, [got[r.rid] for r in reqs]
+
+
+def tbt_summary(np, samples, slo):
+    """p50 / p90 / max (ms) of inter-token gaps and the share within `slo`."""
+    ms = np.asarray(samples) * 1e3
+    return {"n": len(ms), "p50_ms": float(np.median(ms)),
+            "p90_ms": float(np.percentile(ms, 90)), "max_ms": float(ms.max()),
+            "attainment": float(np.mean(ms <= slo * 1e3))}
+
+
+def colocation_phase(torch, np, ops, dep, cfg):
+    """Phase 10: fig24's real panel (benchmarks/fig24_colocation.py:110-197)
+    at full width. Returns the launch counts of the measured hybrid run."""
+    from repro_torch.core import Request
+    from repro_torch.kernels import counts as kcounts
+    from repro_torch.kernels.decode_attn import BODY
+    from repro_torch.models.segments import on_stream
+    from repro_torch.serving import decode_instance as dmod
+    from repro_torch.serving import hybrid_instance as hmod
+
+    n_streams, prompt, out_tokens = 4, 1024, 32
+    n_prefills, prefill_len = 6, 2048
+    ex, vocab = dep.executor, cfg.vocab_size
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, vocab, prompt) for _ in range(n_streams)]
+    floods = [rng.integers(0, vocab, prefill_len) for _ in range(n_prefills)]
+
+    print("profile_step_times (B, mean ctx, s per step), bf16 pool: "
+          + json.dumps(dmod.profile_step_times(
+              dep.params, cfg, batch_sizes=(1, 2, 4), ctx=1024)),
+          flush=True)
+
+    # every batched step's logits with the request ids of its rows, so a
+    # stream's t-th decoded token is read from the t-th step holding it
+    rows, log = {"rids": []}, []
+
+    def recording(fn):
+        def step(params, cfg_, tokens, k_g, v_g, kv_lens):
+            out = fn(params, cfg_, tokens, k_g, v_g, kv_lens)
+            log.append((list(rows["rids"]), out[0]))
+            return out
+        return step
+
+    def tracking(method, live):
+        def step(jobs):
+            rows["rids"] = [j.request.rid for j in jobs if live(j)]
+            return method(jobs)
+        return step
+
+    saved = dmod.decode_step_ragged, hmod.decode_step_ragged
+    dmod.decode_step_ragged = recording(saved[0])
+    hmod.decode_step_ragged = recording(saved[1])
+    try:
+        # 1. a dedicated decode instance on 1024-token handoffs, warmed up
+        handoffs = []
+        for toks in prompts:
+            task = ex.start(toks[None])
+            handoffs.append((int(ex.run_all(task).argmax(-1)[0]), {
+                "k": task.state["k_cache"], "v": task.state["v_cache"],
+                "pos": prompt}))
+        torch.cuda.synchronize()
+        ded = dmod.DecodeInstance(dep.params, cfg, decode_max_batch=n_streams,
+                                  decode_tokens=out_tokens)
+        ded._step_batch = tracking(ded._step_batch, lambda j: True)
+        try:
+            for _ in ("warm-up", "measure"):
+                mark = len(ded.tbt_samples)
+                log.clear()
+                reqs = [Request(num_tokens=prompt, slo=60.0,
+                                arrival=time.monotonic(),
+                                output_tokens=out_tokens, tbt_slo=60.0)
+                        for _ in prompts]
+                with ded._cv:     # all admitted before the first step
+                    for r, (first, cache) in zip(reqs, handoffs):
+                        ded.submit(dmod.DecodeJob(request=r, cache=dict(cache),
+                                                  first_token=first))
+                if not ded.drain(600.0) or not ded.healthy:
+                    fail(f"the dedicated decode instance did not drain "
+                         f"({ded.last_error!r})")
+        finally:
+            ded.shutdown()
+        ded_tbt = ded.tbt_samples[mark:]
+        ded_out = [ded.outputs[r.rid] for r in reqs]
+        ded_rids, ded_log = [r.rid for r in reqs], list(log)
+        log.clear()
+        del handoffs
+        median = float(np.median(ded_tbt))
+        slo = 5 * median
+        print(f"dedicated: {n_streams} streams x {out_tokens} tokens from "
+              f"{prompt}-token handoffs, median step {median * 1e3:.2f} ms; "
+              f"TBT SLO {slo * 1e3:.2f} ms (5x), weave cadence "
+              f"{2 * median * 1e3:.2f} ms (2x)", flush=True)
+
+        # 2. the hybrid: the same decode requests, then a prefill flood
+        hyb = hmod.HybridInstance(
+            dep.params, cfg, max_seq=ex.max_seq, chunk_tokens=512,
+            token_budget=2048, decode_max_batch=n_streams,
+            decode_cadence=2 * median, kv_pool_blocks=128,
+            prefix_share=False, executor=ex)
+        hyb._decode_step = tracking(hyb._decode_step,
+                                    lambda j: j.tokens_done < j.target)
+        kv, grow, growths = hyb.kv, hyb.kv.grow, []
+
+        def checked_grow(extra):
+            # called under the pool lock on the pool's stream: the blocks
+            # from before the growth must reach the new pool unchanged
+            n = kv.num_blocks
+            with on_stream(kv.stream):
+                snap = kv.k_pool.clone(), kv.v_pool.clone()
+                grow(extra)
+                same = torch.equal(kv.k_pool[:, :n], snap[0]) and \
+                    torch.equal(kv.v_pool[:, :n], snap[1])
+            growths.append((n, kv.num_blocks, same))
+
+        kv.grow = checked_grow
+        state = {}
+
+        def colocated_pass():
+            stats0 = hyb.rounds, hyb.steps, hyb.preemptions
+            reqs = [Request(num_tokens=prompt, slo=60.0,
+                            arrival=time.monotonic(),
+                            output_tokens=out_tokens, tbt_slo=slo)
+                    for _ in prompts]
+            for r, toks in zip(reqs, prompts):
+                hyb.submit(r, toks)
+            deadline = time.monotonic() + 600.0
+            while hyb.resident() < n_streams and time.monotonic() < deadline:
+                time.sleep(0.002)
+            if hyb.resident() < n_streams:
+                fail(f"only {hyb.resident()} hybrid streams became resident")
+            mark = len(hyb.tbt_samples)
+            flood = [Request(num_tokens=prefill_len, slo=60.0,
+                             arrival=time.monotonic(), output_tokens=0,
+                             tbt_slo=slo) for _ in floods]
+            for r, toks in zip(flood, floods):
+                hyb.submit(r, toks)
+            if not hyb.drain(600.0) or not hyb.healthy:
+                fail(f"the hybrid instance did not drain ({hyb.last_error!r})")
+            torch.cuda.synchronize()
+            state.update(reqs=reqs, flood=flood, mark=mark, stats0=stats0)
+
+        try:
+            breakdown(torch, "hybrid pass (4 decode streams, then 6 "
+                      "prefill-only requests of 2048 tokens)",
+                      colocated_pass, top=8)
+            log.clear()
+            ops.reset_counts()
+            colocated_pass()
+            counts = ops.counts()
+            counts[BODY] = kcounts.read([BODY])[BODY]
+        finally:
+            hyb.shutdown()
+        got = {j.request.rid: j.emitted for j in hyb.finished_jobs}
+        hyb_out = [got[r.rid] for r in state["reqs"]]
+        hyb_rids, hyb_log = [r.rid for r in state["reqs"]], list(log)
+    finally:
+        dmod.decode_step_ragged, hmod.decode_step_ragged = saved
+    torch.cuda.synchronize()
+
+    hyb_tbt = hyb.tbt_samples[state["mark"]:]
+    d, h = tbt_summary(np, ded_tbt, slo), tbt_summary(np, hyb_tbt, slo)
+    print(f"TBT dedicated {json.dumps(d)}")
+    print(f"TBT hybrid under the flood {json.dumps(h)}")
+    print(f"attainment hybrid / dedicated: "
+          f"{h['attainment'] / max(d['attainment'], 1e-9):.3f}; hybrid p90 "
+          f"{h['p90_ms'] / d['p50_ms']:.2f}x the dedicated median step")
+    r0, s0, p0 = state["stats0"]
+    ttft = [r.ttft for r in state["flood"]]
+    print(f"hybrid measured pass: rounds {hyb.rounds - r0}, decode steps "
+          f"{hyb.steps - s0}, preemptions {hyb.preemptions - p0}; "
+          f"prefill-only TTFT s {json.dumps([round(t, 4) for t in ttft])}; "
+          f"pool growths (blocks before, after, old blocks equal) "
+          f"{growths}")
+    print(f"launches in the measured hybrid pass: {json.dumps(counts)}",
+          flush=True)
+    if not growths or not all(g[2] for g in growths):
+        fail(f"pool growth: {growths} (the flood must grow the 128-block "
+             "pool, and every old block must survive it)")
+    for name in ("chunked_prefill_attention_ref", "decode_attention_ref",
+                 "verify_attention_ref"):
+        if counts[name]:
+            fail(f"the plain {name} ran {counts[name]} times in the hybrid")
+    if counts["flash_prefill_wgmma"] <= 0 or counts[BODY] <= 0 or \
+            counts["flash_prefill_wgmma"] != counts["flash_prefill_attention"]:
+        fail(f"the hybrid ran prefill_tc_kernel {counts['flash_prefill_wgmma']}"
+             f" of {counts['flash_prefill_attention']} prefill launches and "
+             f"the split-KV body {counts[BODY]} times")
+
+    # 3. the measured streams against the dedicated instance's
+    def logits_at(steps, rid, t):
+        """Logits that produced decoded token t (>= 1) of stream rid."""
+        seen = 0
+        for rids, lg in steps:
+            if rid in rids:
+                seen += 1
+                if seen == t:
+                    return lg[rids.index(rid)].float()
+        raise LookupError(f"stream {rid} has no step {t}")
+
+    near_ties = []
+    for i, (a, b) in enumerate(zip(ded_out, hyb_out)):
+        if a == b:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        if t == 0:
+            fail(f"stream {i}: the hybrid's first token {b[0]} differs from "
+                 f"the dedicated prefill's {a[0]}")
+        lp = logits_at(ded_log, ded_rids[i], t)
+        lh = logits_at(hyb_log, hyb_rids[i], t)
+        top2 = lp.topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        diff = (lh - lp).abs().max().item()
+        limit = 4 * 2.0 ** -7 * lp.abs().max().item()
+        print(f"  stream {i} differs at token {t} (dedicated {a[t]}, hybrid "
+              f"{b[t]}): dedicated top-2 gap {gap:.4e}, max |logit diff| "
+              f"{diff:.4e}, limit {limit:.4e}")
+        if gap > diff or diff > limit or int(lp.argmax()) != a[t] \
+                or int(lh.argmax()) != b[t]:
+            fail(f"stream {i}: the hybrid's trajectory differs from the "
+                 f"dedicated one at token {t}, not an explained near-tie")
+        near_ties.append((i, t, gap, diff, limit))
+    print(f"hybrid trajectories equal the dedicated instance's on "
+          f"{sum(a == b for a, b in zip(ded_out, hyb_out))} of {n_streams} "
+          f"streams; explained near-ties {near_ties}", flush=True)
+    return counts
+
+
 def port_request(n):
     from repro_torch.core import Request
     return Request(num_tokens=n, slo=600.0, arrival=time.monotonic())
@@ -1126,6 +1396,28 @@ def main() -> None:
              f"{cpu_tokens}")
     if counts["flash_verify_attention"] <= 0 or counts["verify_attention_ref"]:
         fail("the tiny spec run did not go through the verify kernel alone")
+    # the colocated instance: three concurrent requests prefill and decode
+    # on one worker, on the card and on the CPU
+    hyb_prompts = [np.random.default_rng(seed).integers(0, cfg.vocab_size, 64)
+                   for seed in (0, 1, 2)]
+    hyb_kw = dict(max_seq=128, token_budget=256, chunk_tokens=32,
+                  decode_max_batch=4, decode_cadence=0.002, kv_block_size=16,
+                  kv_pool_blocks=64, prefix_share=False)
+    _, cpu_tokens = run_hybrid(p_cpu, cfg, hyb_prompts, 5, **hyb_kw)
+    ops.reset_counts()
+    inst, gpu_tokens = run_hybrid(p_gpu, cfg, hyb_prompts, 5, **hyb_kw)
+    counts = ops.counts()
+    print(f"hybrid on the card: {inst.rounds} rounds, {inst.steps} decode "
+          f"steps; tokens equal to the CPU's: {gpu_tokens == cpu_tokens}; "
+          f"launches {json.dumps(counts)}")
+    if gpu_tokens != cpu_tokens:
+        fail(f"hybrid tokens on the card {gpu_tokens} differ from the CPU's "
+             f"{cpu_tokens}")
+    if counts["flash_prefill_attention"] <= 0 or \
+            counts["flash_decode_attention"] <= 0 or \
+            counts["chunked_prefill_attention_ref"] or \
+            counts["decode_attention_ref"]:
+        fail("the tiny hybrid did not go through the two kernels alone")
     del p_cpu, p_gpu, handoffs
     if args.quick:
         print(f"\n--quick: stopped after phase 3 "
@@ -1297,6 +1589,9 @@ def main() -> None:
                            device="cuda", prefix_share=True)
     try:
         prefix_counts = prefix_phase(torch, np, ops, dep, dep.cfg)
+        # --- 10. colocation at full width --------------------------------
+        phase("10. colocation: decode TBT while prefills share the card")
+        hybrid_counts = colocation_phase(torch, np, ops, dep, dep.cfg)
     finally:
         dep.shutdown()
 
@@ -1312,11 +1607,19 @@ def main() -> None:
              "src/repro_torch/kernels/csrc/decode_attn.cu",
              "src/repro/kernels/decode_attn.py:129", MAIN_VERIFY)):
         row = record[f"{name} {main}"]
-        launches = {"flash_prefill_attention": prefix_counts,
-                    "flash_decode_attention": counts,
-                    "flash_verify_attention": serve_counts}[name][name]
+        # each path's launches, counted from zero just before it ran
+        by_path = {
+            "flash_prefill_attention": {"prefix serve (phase 9)":
+                                        prefix_counts[name]},
+            "flash_decode_attention": {"serve (phase 6)": counts[name]},
+            "flash_verify_attention": {"spec serve (phase 8)":
+                                       serve_counts[name]},
+        }[name]
+        by_path["colocation (phase 10)"] = hybrid_counts[name]
         kernels.append({"name": name, "route": route, "source": src,
-                        "replaces": replaces, "launches": launches,
+                        "replaces": replaces,
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

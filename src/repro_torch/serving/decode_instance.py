@@ -941,3 +941,70 @@ class DecodeInstance:
                 self._spec_step_batch(batch)
             else:
                 self._step_batch(batch)
+
+
+def profile_step_times(params, cfg, *, batch_sizes: Sequence[int] = (1, 2, 4, 8),
+                       ctx: int = 256, decode_tokens: int = 16,
+                       warmup: int = 2, kv_block_size: int = 128,
+                       clock: Callable[[], float] = time.monotonic,
+                       ) -> List[Tuple[int, float, float]]:
+    """Measure the REAL batched decode step over a sweep of batch sizes.
+
+    Drives `decode_step_ragged` + a bf16 `PagedKVCache` directly (no
+    threads), on the device of `params`: for each B, B synthetic streams
+    with `ctx` prompt tokens decode `decode_tokens` tokens; the MEDIAN
+    per-step wall time after `warmup` steps is recorded (robust to host
+    scheduler jitter — one descheduling would dominate a mean). A step is
+    timed from its gather to the end of its scatter on the device, as
+    `DecodeInstance._step_batch` times it. The prompts' K/V and the first
+    tokens are drawn from a CPU generator seeded 0. Returns
+    ``[(B, mean_context, seconds_per_step)]`` — the samples
+    `DecodeStepPredictor.from_profile` fits its measured step-time prior
+    from. Counterpart of the reference's function of the same name."""
+    generator = torch.Generator().manual_seed(0)
+    device = params["embed"].device
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    L_ = cfg.num_layers
+
+    def sync() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    samples: List[Tuple[int, float, float]] = []
+    for bsz in batch_sizes:
+        tokens_cap = ctx + decode_tokens + warmup + 1
+        blocks_per = (tokens_cap + kv_block_size - 1) // kv_block_size
+        kv = PagedKVCache(L_, bsz * blocks_per + 1, kv_block_size, K, hd,
+                          dtype=torch.bfloat16, device=device)
+        for s in range(bsz):
+            kv.allocate(s, tokens_cap)
+            kprompt = torch.randn((L_, ctx, K, hd), generator=generator)
+            vprompt = torch.randn((L_, ctx, K, hd), generator=generator)
+            kv.write_prompt(s, kprompt.to(device), vprompt.to(device))
+        width = 1
+        while width * kv_block_size < tokens_cap:
+            width *= 2
+        seq_ids = list(range(bsz))
+        toks = torch.randint(0, cfg.vocab_size, (bsz,), generator=generator)
+        toks = toks.to(device)
+        lens = np.full(bsz, ctx, np.int64)
+        elapsed: List[float] = []
+        ctx_timed: List[float] = []
+        sync()
+        for it in range(decode_tokens + warmup):
+            t0 = clock()
+            k_g, v_g, _ = kv.gather_batch(seq_ids, width)
+            logits, k_new, v_new = decode_step_ragged(
+                params, cfg, toks, k_g, v_g,
+                torch.as_tensor(lens, device=device))
+            toks = logits.argmax(-1)
+            kv.write_tokens(seq_ids, lens.tolist(), k_new, v_new)
+            sync()
+            t1 = clock()
+            if it >= warmup:
+                elapsed.append(t1 - t0)
+                ctx_timed.append(float(lens.mean()))   # ctx the step RAN at
+            lens += 1
+        samples.append((bsz, float(np.mean(ctx_timed)),
+                        float(np.median(elapsed))))
+    return samples

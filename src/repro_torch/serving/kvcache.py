@@ -510,14 +510,20 @@ class PagedKVCache:
 
     def grow(self, extra_blocks: int) -> None:
         """Append `extra_blocks` fresh blocks to the pool (live tables keep
-        their indices — new blocks land at the tail of both pools)."""
+        their indices — new blocks land at the tail of both pools).
+
+        Unlike the reference, the copy runs on the pool's stream whichever
+        thread grows the pool: on another stream the `torch.cat` could run
+        before writes queued there land, and keep stale blocks."""
         if extra_blocks <= 0:
             return
         pad = list(self.k_pool.shape)
         pad[1] = extra_blocks
-        zeros = torch.zeros(pad, dtype=self.k_pool.dtype, device=self.device)
-        self.k_pool = torch.cat([self.k_pool, zeros], dim=1)
-        self.v_pool = torch.cat([self.v_pool, zeros], dim=1)
+        with on_stream(self.stream):
+            zeros = torch.zeros(pad, dtype=self.k_pool.dtype,
+                                device=self.device)
+            self.k_pool = torch.cat([self.k_pool, zeros], dim=1)
+            self.v_pool = torch.cat([self.v_pool, zeros], dim=1)
         if self._mgr is not None:
             self._mgr.grow(extra_blocks)
         else:

@@ -114,6 +114,9 @@ class PrefillInstance:
         # handled yet: the event leaves the monitor's queue before the
         # thread takes the lock, and drain() must not call that idle
         self._arriving = 0
+        # tasks running when the instance was stranded: their requests were
+        # re-dispatched, so a COMPLETION they queued is a zombie's
+        self._stranded_tasks: set = set()
         self.completed: List[Request] = []
         self.completed_tasks: List[ExecTask] = []
         self._lock = threading.Lock()
@@ -276,6 +279,7 @@ class PrefillInstance:
                 stranded.extend(task.requests)
             if self._running is not None:
                 stranded.extend(self._running.requests)
+                self._stranded_tasks.add(self._running.task_id)
             self._waiting = []
             self._preempted = {}
             self._running = None
@@ -410,6 +414,14 @@ class PrefillInstance:
             self._waiting.append(req)
         elif ev.kind == EventKind.COMPLETION:
             task: ExecTask = ev.payload
+            if task.task_id in self._stranded_tasks:
+                # beyond the reference: the task completed, and queued this
+                # event, while this thread hung; the strand then handed its
+                # requests back, and a restart() since let the event through
+                # the health check. Handing it on would decode a request
+                # its re-dispatch also serves.
+                self._stranded_tasks.discard(task.task_id)
+                return
             if self._running is not None and task.task_id == self._running.task_id:
                 self._running = None
             if self.kv is not None:

@@ -502,3 +502,155 @@ def test_demoted_block_overwritten_at_once_keeps_its_bytes(card):
         assert (cache.k_pool == 7.0).all() and (cache.v_pool == 9.0).all()
     finally:
         cache.close()
+
+
+def test_hybrid_pool_growth_keeps_queued_writes(card):
+    """A `HybridInstance` grows its pool from the submitting thread. Writes
+    queued on the instance's stream (here behind a spin of the card) must
+    land in the grown pool: a `torch.cat` on another stream would copy the
+    blocks before them. The grown instance then decodes the request to the
+    same tokens as the port on the CPU."""
+    import copy
+    import dataclasses
+    import time
+
+    from repro_torch.configs.base import get_tiny_config
+    from repro_torch.core import Request
+    from repro_torch.params import init_params
+    from repro_torch.serving.hybrid_instance import HybridInstance
+
+    cfg = dataclasses.replace(get_tiny_config("llama3_8b"), num_layers=2,
+                              d_model=128, d_ff=256)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, 64)
+    out = {}
+    for where, params in (("cpu", p_cpu), ("cuda", copy.deepcopy(p_cpu).to(card))):
+        # 3 blocks of 16 (one the scratch row's): 64 + 5 + 1 tokens must grow
+        inst = HybridInstance(params, cfg, max_seq=128, chunk_tokens=32,
+                              token_budget=256, decode_max_batch=4,
+                              decode_cadence=0.002, kv_block_size=16,
+                              kv_pool_blocks=3, prefix_share=False)
+        try:
+            if where == "cuda":
+                with torch.cuda.stream(inst.stream):
+                    torch.cuda._sleep(100_000_000)
+                    inst.kv.k_pool.fill_(7.0)
+                    inst.kv.v_pool.fill_(9.0)
+            req = Request(num_tokens=64, slo=30.0, arrival=time.monotonic(),
+                          output_tokens=5, tbt_slo=10.0)
+            inst.submit(req, toks)
+            assert inst.kv.num_blocks > 3
+            assert inst.drain(120.0) and inst.healthy
+            if where == "cuda":
+                inst.stream.synchronize()
+                # blocks 0-2 held the queued fills; the request took the
+                # new tail blocks and the scratch row was never written
+                assert (inst.kv.k_pool[:, :3] == 7.0).all()
+                assert (inst.kv.v_pool[:, :3] == 9.0).all()
+        finally:
+            inst.shutdown()
+        out[where] = inst.finished_jobs[0].emitted
+    assert out["cuda"] == out["cpu"]
+
+
+def _hybrid_prefix_share(params, cfg, prompts):
+    """The same prompt twice: the second resumes from the trie-cached
+    blocks (the warm path: a gather under the lock seeds `start`)."""
+    inst = _tiny_hybrid(params, cfg, prefix_share=True)
+    reqs = _serve_in_turn(inst, [prompts[0], prompts[0]])
+    assert inst.prefix_hit_tokens == 63
+    return _emitted(inst, reqs)
+
+
+def _hybrid_offload(params, cfg, prompts):
+    """Prefills handed off through `_offload` (a gathered buffer and its
+    "ready" event) into a `DecodeInstance` on the same device."""
+    from repro_torch.serving.decode_instance import DecodeInstance
+    dec = DecodeInstance(params, cfg, decode_tokens=5, decode_max_batch=4)
+    jobs = []
+
+    def hand(job):
+        assert (job.cache["ready"] is None) == (job.cache["k"].is_cpu)
+        jobs.append(job)
+        dec.submit(job)
+
+    inst = _tiny_hybrid(params, cfg, on_decode_ready=hand)
+    try:
+        _serve_in_turn(inst, prompts)
+        assert dec.drain(120.0) and dec.healthy
+    finally:
+        dec.shutdown()
+    return [dec.outputs[j.request.rid] for j in jobs]
+
+
+def _hybrid_tier_promotion(params, cfg, prompts):
+    """A prompt demoted to the host tier by two others, then resubmitted:
+    its blocks are promoted at arrival and settled at its first slice."""
+    inst = _tiny_hybrid(params, cfg, prefix_share=True, kv_pool_blocks=11,
+                        host_cache_blocks=16)
+    reqs = _serve_in_turn(inst, prompts + prompts[:1])
+    assert inst.prefix_promotions == 4 and inst.prefix_hit_tokens == 63
+    return _emitted(inst, reqs)
+
+
+def _tiny_hybrid(params, cfg, **kw):
+    from repro_torch.serving.hybrid_instance import HybridInstance
+    base = dict(max_seq=128, chunk_tokens=32, token_budget=256,
+                decode_max_batch=4, decode_cadence=0.002, kv_block_size=16,
+                kv_pool_blocks=64, prefix_share=False)
+    return HybridInstance(params, cfg, **{**base, **kw})
+
+
+def _serve_in_turn(inst, prompts):
+    """Serve each prompt after the last has drained; the requests."""
+    import time
+
+    from repro_torch.core import Request
+    reqs = []
+    try:
+        for toks in prompts:
+            reqs.append(Request(num_tokens=len(toks), slo=30.0,
+                                arrival=time.monotonic(), output_tokens=5,
+                                tbt_slo=10.0))
+            inst.submit(reqs[-1], toks)
+            assert inst.drain(120.0) and inst.healthy
+    finally:
+        inst.shutdown()
+    free, live, cached, total = inst.kv.accounting()
+    assert (free + cached, live) == (total - 1, 1), "the pool leaked"
+    return reqs
+
+
+def _emitted(inst, reqs):
+    got = {j.request.rid: j.emitted for j in inst.finished_jobs}
+    return [got[r.rid] for r in reqs]
+
+
+@pytest.mark.parametrize("path", [_hybrid_prefix_share, _hybrid_offload,
+                                  _hybrid_tier_promotion],
+                         ids=["prefix_share", "offload", "tier_promotion"])
+def test_hybrid_path_on_the_card_matches_the_cpu(card, path):
+    """The hybrid's stream-ordered paths beyond local decode in plain mode
+    (a warm resume from shared blocks, the handoff to a decode instance,
+    tier promotion) give the CPU's tokens on the card, through the two
+    kernels alone."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.base import get_tiny_config
+    from repro_torch.params import init_params
+
+    cfg = dataclasses.replace(get_tiny_config("llama3_8b"), num_layers=2,
+                              d_model=128, d_ff=256)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = [np.random.default_rng(seed).integers(0, cfg.vocab_size, 64)
+               for seed in (40, 41, 42)]
+    want = path(p_cpu, cfg, prompts)
+    ops.reset_counts()
+    got = path(copy.deepcopy(p_cpu).to(card), cfg, prompts)
+    launched = ops.counts()
+    assert got == want
+    assert launched["flash_prefill_attention"] > 0
+    assert launched["flash_decode_attention"] > 0
+    assert launched["chunked_prefill_attention_ref"] == 0
+    assert launched["decode_attention_ref"] == 0
