@@ -23,7 +23,9 @@ Phases; the first failure exits non-zero and prints no result:
     select (the tensor-core body for bf16 at head_dim 64 or 128, by its
     launch counter); the verify kernel's column 0 must be bit-equal to the
     decode kernel at kv_len + 1; both wrappers must launch the one split-KV
-    body (its counter). At the main-path shapes in bf16 the kernel, the
+    body (its counter). The main-path shapes are Llama3-8B's (K 8) and, for
+    the prefill chunk512@3584 and the decode B4ragged, also Qwen3-30B-A3B's
+    (K 4: 8 query heads per KV head). At them in bf16 the kernel, the
     plain version and one `F.scaled_dot_product_attention` call (a
     yardstick the port never calls) are timed with CUDA events (the calls
     queued behind a spin of the card, so host launch gaps are not timed),
@@ -33,8 +35,11 @@ Phases; the first failure exits non-zero and prints no result:
     L2-cold: the calls rotate over distinct K/V sets that together read at
     least twice the 50 MB L2, and a reading under 0.95 of the bound fails
     as a measurement fault.
- 3. model: the tiny Llama3-8B config in f32, prefill logits and a ragged
-    decode step on the card against the same functions on the CPU (2e-4),
+ 3. model: the tiny Qwen3-MoE config in f32, prefill logits and a ragged
+    decode step on the card against the CPU (2e-4), and its experts at a
+    capacity that drops pairs (the card must route to the CPU's experts,
+    keep and drop the same pairs, and agree within 2e-5); then the tiny
+    Llama3-8B config likewise,
     one speculative-decoding run on the card whose tokens must equal the
     CPU's, and three concurrent requests through a `HybridInstance`
     (prefill and local decode on one worker) whose tokens must equal the
@@ -109,15 +114,29 @@ Phases; the first failure exits non-zero and prints no result:
     ran, or if a stream's tokens differ from the dedicated instance's on
     the same prompt, unless phase 8's near-tie rule explains it (both
     runs' step logits are recorded as they run).
+11. MoE at full width: the Llama3-8B deployments released, Qwen3-30B-A3B
+    built through `build(arch="qwen3_30b_a3b", full_config=True)` in bf16
+    with random weights (61.1 GB; `torch.cuda.memory_allocated` printed
+    before and after), its TTFT profile; a 2048-token prompt suspended
+    after a `gate`, after an `experts` and at a third operator boundary
+    with another prefill in between, whose first-token logits must be
+    bit-equal to an uninterrupted run; phase 6's serve and checks on it
+    (both kernels at K 4 on their Hopper bodies, no plain version, a
+    preemption forced if the mix made none); and `torch.profiler` over one
+    4096-token prefill and one B 4 decode step: the device time under
+    `aten::bmm` (the expert products) and the idle share, beside the bytes
+    bound of reading every expert.
 
 The line before the last holds the kernels' record: each kernel's launches
-by path (each path's counters zeroed just before it ran) and their sum; the
-last line is `{"ok": true, "device": {...}}`.
+by path (each path's counters zeroed just before it ran) and their sum, the
+times at Llama3-8B's main-path shape and, under "k4", at Qwen3-30B-A3B's;
+the last line is `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import math
 import re
@@ -158,21 +177,24 @@ DECODE_CASES = [
     (1, 1024, 16, 8, 64, [1000]),
     (4, 256, 4, 2, 32, [1, 77, 256, 130]),
 ]
-# Llama3-8B main path: H 32, K 8, hd 128, a 4096-token cache per layer
-LLAMA_PREFILL = [
-    # label, Sq, q_offset, kv_len
-    ("chunk512@0", 512, 0, 512),
-    ("chunk512@3584", 512, 3584, 4096),
-    ("tail100@2048", 100, 2048, 2148),
-    ("resume1@4095", 1, 4095, 4096),            # a fully cached prompt
+# the main paths: H 32, hd 128, a 4096-token cache per layer; K 8 is
+# Llama3-8B's, K 4 (8 query heads per KV head) Qwen3-30B-A3B's
+MAIN_PATH_PREFILL = [
+    # label, Sq, q_offset, kv_len, K
+    ("chunk512@0", 512, 0, 512, 8),
+    ("chunk512@3584", 512, 3584, 4096, 8),
+    ("tail100@2048", 100, 2048, 2148, 8),
+    ("resume1@4095", 1, 4095, 4096, 8),         # a fully cached prompt
+    ("chunk512@3584 K4", 512, 3584, 4096, 4),
 ]
 # timed L2-cold like decode: one query row reads the whole 16.8 MB of K/V
 COLD_PREFILL = {"resume1@4095"}
-LLAMA_DECODE = [
-    # label, per-row kv_len
-    ("B1", [3000]),
-    ("B1len1", [1]),
-    ("B4ragged", [1, 1000, 2600, 4096]),
+MAIN_PATH_DECODE = [
+    # label, per-row kv_len, K
+    ("B1", [3000], 8),
+    ("B1len1", [1], 8),
+    ("B4ragged", [1, 1000, 2600, 4096], 8),
+    ("B4ragged K4", [1, 1000, 2600, 4096], 4),
 ]
 VERIFY_CASES = [
     # B, S, T, H, K, hd, per-row kv_len (S 1/2/5/8, Qg 1/4/8, T % 32 != 0)
@@ -189,6 +211,7 @@ VERIFY_CASES = [
 LLAMA_VERIFY = [("B4S5ragged", [1, 1000, 2600, 4091])]
 MAIN_PREFILL, MAIN_DECODE, MAIN_VERIFY = \
     "chunk512@3584", "B4ragged", "B4S5ragged"
+K4 = " K4"                                # the Qwen3-30B-A3B rows' suffix
 
 
 def fail(msg: str) -> None:
@@ -241,11 +264,13 @@ def bound(ops_count: float, nbytes: float):
                                        else "operations")
 
 
-def breakdown(torch, label, fn, top: int = 6) -> None:
+def breakdown(torch, label, fn, top: int = 6, cpu_ops=()) -> None:
     """Profile one call of `fn` (after a warm-up call): wall time to a
     synchronise, device time summed over the CUDA kernels, the device's idle
-    share of the wall time, and the kernels that took the most device time.
-    Prints "not measured" where the profiler recorded no device time."""
+    share of the wall time, the kernels that took the most device time, and
+    the device time of the kernels launched under each operator of
+    `cpu_ops` (such as "aten::bmm") with its share. Prints "not measured"
+    where the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -255,8 +280,11 @@ def breakdown(torch, label, fn, top: int = 6) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    kern = []
+    kern, under = [], {}
     for e in prof.key_averages():
+        if e.key in cpu_ops:
+            us = getattr(e, "device_time_total", None)
+            under[e.key] = (e.cuda_time_total if us is None else us, e.count)
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -273,6 +301,10 @@ def breakdown(torch, label, fn, top: int = 6) -> None:
     for us, n, key in sorted(kern, reverse=True)[:top]:
         print(f"  {us / 1e3:9.2f} ms {100 * us / busy:5.1f}% x{n:<5} "
               f"{key[:90]}")
+    for key in cpu_ops:
+        us, n = under.get(key, (0.0, 0))
+        print(f"  under {key}: {us / 1e3:.2f} ms of kernels, "
+              f"{100 * us / busy:.1f}% of the device time, x{n}")
 
 
 BODIES = ("prefill_tc_kernel", "split_kernel", "combine_kernel")
@@ -1041,6 +1073,186 @@ def colocation_phase(torch, np, ops, dep, cfg):
     return counts
 
 
+def serve_phase(np, ops, kcounts, dep, cfg, seed):
+    """`serve_trace` over 6 requests of the launcher's mix with the launch
+    counters zeroed just before; if the mix made the scheduler preempt no
+    prefill, one long and then one short request force it (their prompts
+    drawn from `seed`). Fails unless every request decoded, a prefill was
+    preempted, both kernels launched on their Hopper bodies (every prefill
+    launch on the tensor-core body, every decode launch on the split-KV
+    body) and no plain version ran. Returns the launch counts."""
+    from repro_torch.core import Request, RequestState
+    from repro_torch.kernels.decode_attn import BODY
+    from repro_torch.launch.serve import serve_trace
+    ops.reset_counts()
+    rep = serve_trace(dep, requests=6, seed=0)
+    forced = False
+    if rep["preemptions"] == 0:
+        forced = True
+        rng = np.random.default_rng(seed)
+        long_req = Request(num_tokens=4096, slo=25.0, task_type="file",
+                           arrival=time.monotonic())
+        dep.proxy.submit(long_req, rng.integers(0, cfg.vocab_size, 4096))
+        deadline = time.monotonic() + 120.0
+        while long_req.state != RequestState.RUNNING \
+                and time.monotonic() < deadline:
+            time.sleep(0.002)
+        short_req = Request(num_tokens=256, slo=1.5, task_type="text",
+                            arrival=time.monotonic())
+        dep.proxy.submit(short_req, rng.integers(0, cfg.vocab_size, 256))
+        if not dep.proxy.drain(600.0):
+            fail("drain timed out after the forced preemption pair")
+    counts = ops.counts()
+    report = dep.proxy.report()
+    n_req = len(dep.proxy.requests)
+    decoded = len(dep.decode.finished)
+    preemptions = len(dep.prefill.blocking_stats.samples)
+    ttft = [r.ttft for r in dep.proxy.requests if r.ttft is not None]
+    print(f"requests {n_req} (forced preemption pair: {forced}) "
+          f"decoded {decoded} attainment {report['slo_attainment']:.3f} "
+          f"by_task {json.dumps(rep['attainment_by_task'])}")
+    print(f"TTFT s: mean {np.mean(ttft):.4f} p50 {np.median(ttft):.4f} "
+          f"max {np.max(ttft):.4f}; rounds {report['scheduling_rounds']} "
+          f"blocking_mean {report['blocking_mean'] * 1e3:.2f} ms "
+          f"preemptions {preemptions} decode steps {dep.decode.steps} "
+          f"shapes {dep.decode.compile_cache_size()}")
+    steps = np.asarray(dep.decode.step_samples) * 1e3
+    print(f"decode step ms (synchronised): p50 {np.median(steps):.2f} "
+          f"p90 {np.percentile(steps, 90):.2f} max {steps.max():.2f}")
+    print(f"launches since reset: {json.dumps(counts)}", flush=True)
+    if decoded != n_req:
+        fail(f"decoded {decoded} of {n_req} requests")
+    n_out = dep.decode.decode_tokens + 1
+    for rid, toks_out in dep.decode.outputs.items():
+        if len(toks_out) != n_out or not all(
+                0 <= t < cfg.vocab_size for t in toks_out):
+            fail(f"request {rid}: bad decode output {toks_out}")
+    if preemptions < 1:
+        fail("the scheduler never preempted a prefill")
+    for name in ("flash_prefill_attention", "flash_decode_attention"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched by the serve phase")
+    for name in ("chunked_prefill_attention_ref", "decode_attention_ref"):
+        if counts[name] != 0:
+            fail(f"the plain {name} ran {counts[name]} times on the "
+                 "serve path")
+    if counts["flash_prefill_wgmma"] != counts["flash_prefill_attention"]:
+        fail(f"{counts['flash_prefill_attention']} prefill launches in "
+             f"the serve phase, {counts['flash_prefill_wgmma']} of them "
+             "on the tensor-core body")
+    body = kcounts.read([BODY])[BODY]
+    if body != counts["flash_decode_attention"] + \
+            counts["flash_verify_attention"]:
+        fail(f"{body} launches of the split-KV body for "
+             f"{counts['flash_decode_attention']} decode and "
+             f"{counts['flash_verify_attention']} verify launches")
+    return counts
+
+
+def moe_phase(torch, np, ops, kcounts, build_deployment):
+    """Phase 11: Qwen3-30B-A3B at its published width in bf16 with random
+    weights (61.1 GB), on a card the earlier phases have released. Returns
+    the serve's launch counts."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import decode_step_ragged
+    gib = 2 ** 30
+    print(f"memory allocated before build "
+          f"{torch.cuda.memory_allocated() / gib:.2f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / gib:.2f} GiB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    dep = build_deployment(arch="qwen3_30b_a3b", full_config=True,
+                           max_seq=4096, chunk=512, decode_tokens=8,
+                           decode_max_batch=4, seed=0, device="cuda")
+    cfg, ex = dep.cfg, dep.executor
+    n_params = sum(p.numel() for p in dep.params.parameters())
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
+          f"{cfg.resolved_head_dim}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token} of d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {n_params / 1e9:.3f} B params "
+          f"(param_count {cfg.param_count() / 1e9:.3f} B) in "
+          f"{dep.params.dtype}; operators {'/'.join(ex.ops)}")
+    print(f"memory allocated after build "
+          f"{torch.cuda.memory_allocated() / gib:.2f} GiB, peak "
+          f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    print("TTFT profile (s, synchronised):",
+          json.dumps({n: round(t, 4) for n, t in dep.profile.items()}))
+    print(f"build + profile {time.monotonic() - t0:.1f} s", flush=True)
+    # every layer's `bmm`s read all E experts' gate|up and down matrices
+    es = dep.params.dtype.itemsize
+    E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
+    expert_bytes = cfg.num_layers * E * 3 * D * Fd * es
+    try:
+        # --- suspend/resume at MoE operator boundaries ----------------------
+        prompt = np.random.default_rng(11).integers(0, cfg.vocab_size,
+                                                    (1, 2048))
+        other = np.random.default_rng(12).integers(0, cfg.vocab_size,
+                                                   (1, 300))
+        want = ex.run_all(ex.start(prompt))
+        task = ex.start(prompt)
+        total, spc = task.total_segments, ex._segments_per_chunk
+
+        def after(op, frac):
+            """The first boundary past frac of the segments that follows
+            an `op` segment."""
+            c = int(total * frac)
+            while ex.ops[(c - 1) % spc % len(ex.ops)] != op:
+                c += 1
+            return c
+        stops = [after("gate", 0.1), after("experts", 0.45), int(0.8 * total)]
+        ops_at = [ex.ops[(c - 1) % spc % len(ex.ops)] for c in stops]
+        for stop in stops:
+            while task.cursor < stop:
+                ex.step(task)
+            ex.run_all(ex.start(other))          # another prefill meanwhile
+        got = ex.run_all(task)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        print(f"{total} segments, suspended at {stops} (after "
+              f"{'/'.join(ops_at)}): logits {tuple(got.shape)} finite "
+              f"{bool(torch.isfinite(got.float()).all())} bit-equal {equal}",
+              flush=True)
+        if not equal or ops_at[:2] != ["gate", "experts"]:
+            fail("the MoE prefill resumed at its gate / experts boundaries "
+                 "differs from the uninterrupted run: max abs diff "
+                 f"{(got.float() - want.float()).abs().max().item()}")
+
+        # --- serve the launcher's mix ---------------------------------------
+        counts = serve_phase(np, ops, kcounts, dep, cfg, seed=13)
+
+        # --- where the time goes --------------------------------------------
+        G, _, cap = L.moe_groups(512, cfg.experts_per_token, E, Fd,
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 min_capacity=cfg.moe_min_capacity)
+        chunk_ops = 2 * E * G * cap * D * 3 * Fd * cfg.num_layers
+        print(f"expert bmm bound per pass over the layers (a prefill chunk "
+              f"or a decode step; bf16, all {E} experts read): "
+              f"{expert_bytes / 1e9:.2f} GB, "
+              f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms of bytes; a "
+              f"512-token chunk ({G} group, cap {cap}) also needs "
+              f"{chunk_ops / PEAK_BF16_OPS * 1e3:.2f} ms of expert "
+              "operations")
+        toks = np.random.default_rng(14).integers(0, cfg.vocab_size,
+                                                  (1, 4096))
+        breakdown(torch, "prefill 4096 (chunk 512, op granularity)",
+                  lambda: ex.run_all(ex.start(toks)), cpu_ops=("aten::bmm",))
+        L_, K_, hd_ = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+        k_g = torch.zeros((L_, 4, 4096, K_, hd_), dtype=dep.params.dtype,
+                          device="cuda")
+        v_g = torch.zeros_like(k_g)
+        lens_t = torch.tensor([263, 1031, 2055, 4095], device="cuda")
+        step_toks = torch.tensor([1, 2, 3, 4], device="cuda")
+        breakdown(torch, "decode_step_ragged B 4, kv_len 263..4095",
+                  lambda: decode_step_ragged(dep.params, cfg, step_toks,
+                                             k_g, v_g, lens_t),
+                  cpu_ops=("aten::bmm",))
+        del k_g, v_g
+    finally:
+        dep.shutdown()
+    return counts
+
+
 def port_request(n):
     from repro_torch.core import Request
     return Request(num_tokens=n, slo=600.0, arrival=time.monotonic())
@@ -1070,6 +1282,7 @@ def main() -> None:
                                                        tensor_core_body)
         from repro_torch.launch.serve import build as build_deployment
         from repro_torch.launch.serve import serve_trace
+        from repro_torch.models import layers as L
         from repro_torch.models.model import decode_step_ragged
         from repro_torch.models.segments import SegmentedPrefill
         from repro_torch.params import init_params
@@ -1078,7 +1291,6 @@ def main() -> None:
         fail(f"the port is not importable from {ROOT / 'src'}: {exc}")
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.core import Request, RequestState
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1199,8 +1411,9 @@ def main() -> None:
                      "at kv_len + 1")
 
     H, K, hd, T = 32, 8, 128, 4096
-    print("\nLlama3-8B main-path shapes (H 32, K 8, hd 128, T 4096); "
-          "times in ms, CUDA events, 20 calls after 3 warm-up calls")
+    print("\nmain-path shapes (H 32, hd 128, T 4096; K 8 for Llama3-8B, "
+          "K 4 for Qwen3-30B-A3B's rows marked K4); times in ms, CUDA "
+          "events, 20 calls after 3 warm-up calls")
     # 1 GiB of bf16 K and of V, carved into the L2-cold rotations
     pool_k = torch.randn(2 ** 29, generator=gen, device=dev,
                          dtype=torch.bfloat16)
@@ -1233,7 +1446,7 @@ def main() -> None:
         return row
     for dtype in (torch.bfloat16, torch.float32):
         es = torch.tensor([], dtype=dtype).element_size()
-        for label, Sq, qoff, kv_len in LLAMA_PREFILL:
+        for label, Sq, qoff, kv_len, K in MAIN_PATH_PREFILL:
             q = randn((1, Sq, H, hd), dtype)
             k, v = randn((1, T, K, hd), dtype), randn((1, T, K, hd), dtype)
             name = f"flash_prefill_attention {label}"
@@ -1273,7 +1486,7 @@ def main() -> None:
                 *prefill_work(1, Sq, H, K, hd, qoff, kv_len, es))
             record[name] = row
             print(f"  {name}: {json.dumps(row)}", flush=True)
-        for label, lens in LLAMA_DECODE:
+        for label, lens, K in MAIN_PATH_DECODE:
             B = len(lens)
             q = randn((B, H, hd), dtype)
             k, v = randn((B, T, K, hd), dtype), randn((B, T, K, hd), dtype)
@@ -1310,7 +1523,7 @@ def main() -> None:
                                 "flash_verify_attention": 1} or not same:
                     fail("decode and verify did not run the one split-KV "
                          "body")
-        S = 5
+        S, K = 5, 8
         for label, lens in LLAMA_VERIFY:
             B = len(lens)
             q = randn((B, S, H, hd), dtype)
@@ -1347,27 +1560,66 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --- 3. tiny model, card against CPU -------------------------------------
-    phase("3. tiny Llama3-8B config in f32: card against CPU")
-    cfg = get_tiny_config("llama3_8b")
-    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    phase("3. tiny Llama3-8B and Qwen3-MoE configs in f32: card against "
+          "CPU")
+
+    def tiny_card_vs_cpu(arch):
+        """Prefill logits and one ragged decode step of a tiny config on
+        the card against the CPU (2e-4); returns the config and weights."""
+        cfg = get_tiny_config(arch)
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        p_gpu = copy.deepcopy(p_cpu).to(dev)
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 72))
+        out = {}
+        for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+            ex = SegmentedPrefill(params, cfg, max_seq=128, chunk_tokens=32)
+            task = ex.start(toks, lens=[72, 50])
+            logits = ex.run_all(task)
+            kc, vc = task.state["k_cache"], task.state["v_cache"]
+            lens = torch.tensor([72, 50], device=params.device)
+            dlog, k_new, _ = decode_step_ragged(
+                params, cfg, logits.argmax(-1), kc, vc, lens)
+            out[where] = [x.detach().cpu() for x in (logits, dlog, k_new)]
+        for name, a, b in zip(("prefill logits", "decode logits",
+                               "decode k_new"), out["cpu"], out["cuda"]):
+            err = (a - b).abs().max().item()
+            print(f"{cfg.name} {name:<16} card vs cpu max_abs_err {err:.3e} "
+                  f"tol 2e-4 ({'/'.join(ex.ops)})")
+            if not err <= 2e-4:
+                fail(f"tiny {cfg.name} {name}: card and CPU differ by {err}")
+        return cfg, p_cpu, p_gpu
+
+    # the experts at a capacity that drops pairs: the card must route to
+    # the CPU's experts and keep and drop the same pairs
+    moe_cfg, m_cpu, m_gpu = tiny_card_vs_cpu("qwen3_30b_a3b")
+    x_moe = torch.randn(2, 96, moe_cfg.d_model,
+                        generator=torch.Generator().manual_seed(1))
+    moe_out = {}
+    for where, params in (("cpu", m_cpu), ("cuda", m_gpu)):
+        lay = {key: t[1] for key, t in params["layers"].items()}
+        x = x_moe.to(params.device)
+        k_, E_ = moe_cfg.experts_per_token, moe_cfg.num_experts
+        w, idx, _ = L.moe_router(x, lay["router"], k_)
+        G, _, cap = L.moe_groups(x.shape[0] * x.shape[1], k_, E_,
+                                 moe_cfg.d_ff, capacity_factor=0.5,
+                                 min_capacity=4)
+        keep = L.moe_queue(idx, G, E_, cap)[1]
+        y = L.moe_apply(x, w, idx, lay["wi"], lay["wd"], k=k_,
+                        capacity_factor=0.5, min_capacity=4)
+        moe_out[where] = [t.cpu() for t in (idx, keep, y)]
+    err = (moe_out["cpu"][2] - moe_out["cuda"][2]).abs().max().item()
+    same = torch.equal(moe_out["cpu"][0], moe_out["cuda"][0]) and \
+        torch.equal(moe_out["cpu"][1], moe_out["cuda"][1])
+    dropped = int((~moe_out["cpu"][1]).sum())
+    print(f"moe_apply at capacity {cap} of {G} group(s): {dropped} of "
+          f"{moe_out['cpu'][1].numel()} pairs dropped; card routes and "
+          f"drops as the CPU: {same}; max_abs_err {err:.3e} tol 2e-5")
+    if not same or dropped == 0 or not err <= 2e-5:
+        fail("the tiny Qwen3-MoE experts on the card differ from the CPU")
+    del m_cpu, m_gpu, moe_out
+    cfg, p_cpu, p_gpu = tiny_card_vs_cpu("llama3_8b")
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 72))
-    out = {}
-    for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
-        ex = SegmentedPrefill(params, cfg, max_seq=128, chunk_tokens=32)
-        task = ex.start(toks, lens=[72, 50])
-        logits = ex.run_all(task)
-        kc, vc = task.state["k_cache"], task.state["v_cache"]
-        lens = torch.tensor([72, 50], device=params.device)
-        dlog, k_new, _ = decode_step_ragged(
-            params, cfg, logits.argmax(-1), kc, vc, lens)
-        out[where] = [x.detach().cpu() for x in (logits, dlog, k_new)]
-    for name, a, b in zip(("prefill logits", "decode logits", "decode k_new"),
-                          out["cpu"], out["cuda"]):
-        err = (a - b).abs().max().item()
-        print(f"{name:<16} card vs cpu max_abs_err {err:.3e} tol 2e-4")
-        if not err <= 2e-4:
-            fail(f"tiny model {name}: card and CPU differ by {err}")
     # speculative decoding on the card, drafting the CPU's plain tokens
     handoffs = {}
     for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
@@ -1467,67 +1719,7 @@ def main() -> None:
 
         # --- 6. serve ---------------------------------------------------------
         phase("6. serve the launcher's mix")
-        ops.reset_counts()
-        rep = serve_trace(dep, requests=6, seed=0)
-        forced = False
-        if rep["preemptions"] == 0:
-            forced = True
-            rng = np.random.default_rng(3)
-            long_req = Request(num_tokens=4096, slo=25.0, task_type="file",
-                               arrival=time.monotonic())
-            dep.proxy.submit(long_req, rng.integers(0, cfg.vocab_size, 4096))
-            deadline = time.monotonic() + 120.0
-            while long_req.state != RequestState.RUNNING \
-                    and time.monotonic() < deadline:
-                time.sleep(0.002)
-            short_req = Request(num_tokens=256, slo=1.5, task_type="text",
-                                arrival=time.monotonic())
-            dep.proxy.submit(short_req, rng.integers(0, cfg.vocab_size, 256))
-            if not dep.proxy.drain(600.0):
-                fail("drain timed out after the forced preemption pair")
-        counts = ops.counts()
-        report = dep.proxy.report()
-        n_req = len(dep.proxy.requests)
-        decoded = len(dep.decode.finished)
-        preemptions = len(dep.prefill.blocking_stats.samples)
-        ttft = [r.ttft for r in dep.proxy.requests if r.ttft is not None]
-        print(f"requests {n_req} (forced preemption pair: {forced}) "
-              f"decoded {decoded} attainment {report['slo_attainment']:.3f} "
-              f"by_task {json.dumps(rep['attainment_by_task'])}")
-        print(f"TTFT s: mean {np.mean(ttft):.4f} p50 {np.median(ttft):.4f} "
-              f"max {np.max(ttft):.4f}; rounds {report['scheduling_rounds']} "
-              f"blocking_mean {report['blocking_mean'] * 1e3:.2f} ms "
-              f"preemptions {preemptions} decode steps {dep.decode.steps} "
-              f"shapes {dep.decode.compile_cache_size()}")
-        steps = np.asarray(dep.decode.step_samples) * 1e3
-        print(f"decode step ms (synchronised): p50 {np.median(steps):.2f} "
-              f"p90 {np.percentile(steps, 90):.2f} max {steps.max():.2f}")
-        print(f"launches since reset: {json.dumps(counts)}", flush=True)
-        if decoded != n_req:
-            fail(f"decoded {decoded} of {n_req} requests")
-        for rid, toks_out in dep.decode.outputs.items():
-            if len(toks_out) != 8 + 1 or not all(
-                    0 <= t < cfg.vocab_size for t in toks_out):
-                fail(f"request {rid}: bad decode output {toks_out}")
-        if preemptions < 1:
-            fail("the scheduler never preempted a prefill")
-        for name in ("flash_prefill_attention", "flash_decode_attention"):
-            if counts[name] <= 0:
-                fail(f"{name} was not launched by the serve phase")
-        for name in ("chunked_prefill_attention_ref", "decode_attention_ref"):
-            if counts[name] != 0:
-                fail(f"the plain {name} ran {counts[name]} times on the "
-                     "serve path")
-        if counts["flash_prefill_wgmma"] != counts["flash_prefill_attention"]:
-            fail(f"{counts['flash_prefill_attention']} prefill launches in "
-                 f"the serve phase, {counts['flash_prefill_wgmma']} of them "
-                 "on the tensor-core body")
-        body = kcounts.read([BODY])[BODY]
-        if body != counts["flash_decode_attention"] + \
-                counts["flash_verify_attention"]:
-            fail(f"{body} launches of the split-KV body for "
-                 f"{counts['flash_decode_attention']} decode and "
-                 f"{counts['flash_verify_attention']} verify launches")
+        counts = serve_phase(np, ops, kcounts, dep, cfg, seed=3)
 
         # --- 7. where the time goes (measurement only) ------------------------
         phase("7. device time by kernel: one 4096-token prefill, one decode "
@@ -1595,6 +1787,13 @@ def main() -> None:
     finally:
         dep.shutdown()
 
+    # --- 11. the uniform MoE family at full width ------------------------------
+    del dep
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("11. MoE: Qwen3-30B-A3B, published width, bf16, random weights")
+    moe_counts = moe_phase(torch, np, ops, kcounts, build_deployment)
+
     kernels = []
     for name, route, src, replaces, main in (
             ("flash_prefill_attention", "cuda",
@@ -1616,15 +1815,16 @@ def main() -> None:
                                        serve_counts[name]},
         }[name]
         by_path["colocation (phase 10)"] = hybrid_counts[name]
-        kernels.append({"name": name, "route": route, "source": src,
-                        "replaces": replaces,
-                        "launches": sum(by_path.values()),
-                        "launches_by_path": by_path,
-                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                        "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+        by_path["moe serve (phase 11)"] = moe_counts[name]
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        entry = {"name": name, "route": route, "source": src,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path, **{k: row[k] for k in keys}}
+        if f"{name} {main}{K4}" in record:       # Qwen3-30B-A3B's shape
+            k4 = record[f"{name} {main}{K4}"]
+            entry["k4"] = {k: k4[k] for k in keys}
+        kernels.append(entry)
     print(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))

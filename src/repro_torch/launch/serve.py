@@ -3,10 +3,13 @@ one device and serve the reference launcher's request mix.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full-config \
         --requests 6 --policy s-edf [--granularity op] [--chunk 512] \
-        [--spec-decode --draft-k 4] [--prefix-share]
+        [--spec-decode --draft-k 4] [--prefix-share] \
+        [--arch qwen3_30b_a3b]
 
-`--full-config` serves Llama3-8B at its published width in bf16 with random
-weights drawn from `--seed`; without it, the tiny config. `--device`
+`--full-config` serves `--arch` (Llama3-8B by default; Qwen3-30B-A3B, the
+uniform MoE family, fits one 80 GB card) at its published width in bf16
+with random weights drawn from `--seed`; without it, the arch's tiny
+config. `--device`
 defaults to `cuda`; `--device cpu` runs the same path on the host (tiny
 config only in practice). Counterpart of src/repro/launch/serve.py, split
 into `build` and `serve_trace` so that `chip_smoke.py` can drive it.
@@ -155,8 +158,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3_8b")
     ap.add_argument("--full-config", action="store_true",
-                    help="use the published config (Llama3-8B: 32 layers, "
-                    "d_model 4096)")
+                    help="use the arch's published config (Llama3-8B: 32 "
+                    "layers, d_model 4096; qwen3_30b_a3b: 48 layers, 128 "
+                    "experts top-8)")
     ap.add_argument("--policy", default="s-edf",
                     choices=["s-edf", "d-edf", "edf", "fcfs"])
     ap.add_argument("--granularity", default="op")

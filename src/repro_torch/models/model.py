@@ -1,11 +1,12 @@
-"""The dense model family: parameter shapes, embedding, projections, the
+"""The dense and uniform MoE model families: parameter shapes, embedding,
+projections, the FFN (SwiGLU or top-k MoE, by the layer's keys), the
 language-model head, the two decode steps and the speculative verify step.
 
-Counterpart of src/repro/models/model.py (its dense, single-layer-stack
-part). The reference scans a jitted body over stacked layer parameters; here
-the layers are a Python loop of eager PyTorch ops. Attention goes through
-`kernels.ops`, which runs the CUDA decode and verify kernels on the card and
-the plain versions on the CPU.
+Counterpart of src/repro/models/model.py (its single-layer-stack part:
+dense, and MoE at moe_layer_freq 1). The reference scans a jitted body over
+stacked layer parameters; here the layers are a Python loop of eager
+PyTorch ops. Attention goes through `kernels.ops`, which runs the CUDA
+decode and verify kernels on the card and the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -20,24 +21,38 @@ from repro_torch.models import layers as L
 Params = Any          # repro_torch.params.ModelParams (mapping-style access)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.num_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r} (num_experts={cfg.num_experts}) is not "
-            "ported; only the dense family is")
+def _check_ported(cfg: ModelConfig) -> None:
+    """Admit the families with one stack of attention layers: dense, and
+    MoE with an MoE FFN in every layer. Interleaved dense/MoE pairs, ssm,
+    the recurrent hybrid, audio and vlm are not ported."""
+    if cfg.family == "dense" and not cfg.num_experts:
+        return
+    if cfg.family == "moe" and cfg.num_experts and cfg.moe_layer_freq == 1:
+        return
+    raise NotImplementedError(
+        f"family {cfg.family!r} (num_experts={cfg.num_experts}, "
+        f"moe_layer_freq={cfg.moe_layer_freq}) is not ported; only the "
+        "dense family and uniform MoE stacks are")
 
 
 def model_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Parameter shapes of a dense model, identical to the reference's."""
-    _check_dense(cfg)
+    """Parameter shapes of a dense or uniform MoE model, identical to the
+    reference's."""
+    _check_ported(cfg)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, K, n = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
     layer = {"ln1": (d,), "wq": (d, H * hd), "wk": (d, K * hd),
              "wv": (d, K * hd), "wo": (H * hd, d)}
     if cfg.qkv_bias:
         layer.update(bq=(H * hd,), bk=(K * hd,), bv=(K * hd,))
-    # gate|up as an explicit (2, F) axis, as the reference stores it
-    layer.update(ln2=(d,), wi=(d, 2, cfg.d_ff), wd=(cfg.d_ff, d))
+    if cfg.num_experts:
+        # per expert: gate|up concatenated on the last axis, (E, D, 2F)
+        E = cfg.num_experts
+        layer.update(router=(d, E), wi=(E, d, 2 * cfg.d_ff),
+                     wd=(E, cfg.d_ff, d), ln2=(d,))
+    else:
+        # gate|up as an explicit (2, F) axis, as the reference stores it
+        layer.update(ln2=(d,), wi=(d, 2, cfg.d_ff), wd=(cfg.d_ff, d))
     out: Dict[str, Any] = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
     if not cfg.tie_embeddings:
         out["unembed"] = (d, cfg.vocab_size)
@@ -69,7 +84,13 @@ def _project_qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 def ffn_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
               h: torch.Tensor) -> torch.Tensor:
+    """The FFN variant follows the layer's keys, as the reference's does."""
     x = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    if "router" in p:
+        return h + L.moe_ffn(x, p["router"], p["wi"], p["wd"],
+                             k=cfg.experts_per_token,
+                             capacity_factor=cfg.moe_capacity_factor,
+                             min_capacity=cfg.moe_min_capacity)
     return h + L.swiglu(x, p["wi"], p["wd"])
 
 
@@ -101,7 +122,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     returned dict shares those tensors and carries pos + 1. Attention is
     the decode kernel over keys [0, pos] (kv_len = pos + 1).
     Returns (logits (B, V), cache)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     pos = int(cache["pos"])
     B = tokens.shape[0]
     dev = tokens.device
@@ -149,7 +170,7 @@ def decode_step_ragged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         raise NotImplementedError(
             f"batched ragged decode unsupported for family={cfg.family!r} "
             f"(moe_layer_freq={cfg.moe_layer_freq}); use decode_step")
-    _check_dense(cfg)
+    _check_ported(cfg)
     B = tokens.shape[0]
     dev = tokens.device
     pos = torch.as_tensor(kv_lens, device=dev).to(torch.int64)
@@ -211,7 +232,7 @@ def decode_verify_ragged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         raise NotImplementedError(
             f"speculative verify unsupported for family={cfg.family!r} "
             f"(moe_layer_freq={cfg.moe_layer_freq}); use decode_step")
-    _check_dense(cfg)
+    _check_ported(cfg)
     B, S = tokens.shape
     dev = tokens.device
     pos = torch.as_tensor(kv_lens, device=dev).to(torch.int64)

@@ -7,12 +7,15 @@ device; the host checks the preemption flag between segments, and a
 suspended task is simply one that is not stepped (its state stays on the
 device, nothing is recomputed on resume).
 
-Operators of the dense family (paper §5.1 / §6.5):
-    qkv_proj | attn | o_proj | gate_up_proj | down_proj
+Operator sets (paper §5.1 / §6.5):
+    dense:  qkv_proj | attn | o_proj | gate_up_proj | down_proj
+    moe:    qkv_proj | attn | o_proj | gate | experts
 Boundary granularity is op / layer / block<k> / whole (Fig. 12). With
 ``chunk_tokens > 0`` the prompt is split into chunks, each running all
 layers at its q_offset (Fig. 15); the `attn` operator is the flash-prefill
-kernel on the card.
+kernel on the card. As in the reference, a chunk's B * Sc tokens form the
+MoE groups, so a chunked MoE prefill may drop other pairs than an
+unchunked one.
 
 Each segment records a CUDA event after its work (`PrefillTask.sync_token`)
 so the Execution Pool can bound how far the host runs ahead of the card.
@@ -31,20 +34,20 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
-from repro_torch.models.model import (_project_qkv, embed_tokens, layer_params,
-                                      lm_head)
+from repro_torch.models.model import (_check_ported, _project_qkv,
+                                      embed_tokens, layer_params, lm_head)
 
 State = Dict[str, Any]
 
 DENSE_OPS = ("qkv_proj", "attn", "o_proj", "gate_up_proj", "down_proj")
+MOE_OPS = ("qkv_proj", "attn", "o_proj", "gate", "experts")
 
 
 def op_names(cfg: ModelConfig) -> Tuple[str, ...]:
-    if cfg.family == "dense" and not cfg.num_experts:
-        return DENSE_OPS
-    raise NotImplementedError(
-        f"segmented executor: family {cfg.family!r} "
-        f"(num_experts={cfg.num_experts}) is not ported")
+    """The operator set of a ported family; raises for the others
+    (interleaved MoE pairs among them, as the reference does)."""
+    _check_ported(cfg)
+    return MOE_OPS if cfg.num_experts else DENSE_OPS
 
 
 def mark(device: torch.device) -> Optional[torch.cuda.Event]:
@@ -117,8 +120,24 @@ def _make_op_fns(cfg: ModelConfig) -> Dict[str, Callable]:
         p = layer_params(params, l)
         return dict(st, h=st["h"] + st["tmp"] @ p["wd"], tmp=None)
 
+    def gate(params, st, l, off):
+        p = layer_params(params, l)
+        x = L.rms_norm(st["h"], p["ln2"], cfg.norm_eps)
+        w, idx, _ = L.moe_router(x, p["router"], cfg.experts_per_token)
+        return dict(st, tmp=(x, w, idx))
+
+    def experts(params, st, l, off):
+        p = layer_params(params, l)
+        x, w, idx = st["tmp"]
+        y = L.moe_apply(x, w, idx, p["wi"], p["wd"],
+                        k=cfg.experts_per_token,
+                        capacity_factor=cfg.moe_capacity_factor,
+                        min_capacity=cfg.moe_min_capacity)
+        return dict(st, h=st["h"] + y, tmp=None)
+
     return {"qkv_proj": qkv_proj, "attn": attn, "o_proj": o_proj,
-            "gate_up_proj": gate_up_proj, "down_proj": down_proj}
+            "gate_up_proj": gate_up_proj, "down_proj": down_proj,
+            "gate": gate, "experts": experts}
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,11 @@
 `init_params` pytree or drawn from a seeded `torch.Generator`.
 
 The module keeps the reference's key names and layout: ``embed``,
-``final_norm``, ``unembed`` and ``layers.{ln1, wq, wk, wv, wo, ln2, wi, wd}``,
-each layer leaf stacked with a leading L axis, so ``params["layers"]["wq"]``
-reads as ``params["layers"]["wq"]`` does in src/repro/models/model.py. The
-parameters are frozen: serving never builds an autograd graph.
+``final_norm``, ``unembed`` and ``layers.{ln1, wq, wk, wv, wo, ln2, wi, wd}``
+(and ``router`` in an MoE stack), each layer leaf stacked with a leading L
+axis, so ``params["layers"]["wq"]`` reads as ``params["layers"]["wq"]``
+does in src/repro/models/model.py. The parameters are frozen: serving never
+builds an autograd graph.
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class ModelParams(nn.Module):
-    """Stacked parameters of one dense model; `params[key]` mirrors the
-    reference pytree's dict access."""
+    """Stacked parameters of one model of a ported family (dense, uniform
+    MoE); `params[key]` mirrors the reference pytree's dict access."""
 
     def __init__(self, tree: Mapping[str, Any]):
         super().__init__()
@@ -37,8 +38,8 @@ class ModelParams(nn.Module):
                     {k: _frozen(t) for k, t in val.items()})
             elif isinstance(val, Mapping):
                 raise NotImplementedError(
-                    f"parameter group {key!r}: only the dense family "
-                    "(one stacked `layers` group) is ported")
+                    f"parameter group {key!r}: only families with one "
+                    "stacked `layers` group (dense, uniform MoE) are ported")
             else:
                 setattr(self, key, _frozen(val))
 
@@ -70,6 +71,9 @@ def from_jax_params(np_tree: Mapping[str, Any], *, device="cuda",
 
 
 def _fan_in(shape) -> int:
+    """The reference's rule: the second-to-last axis (D for an expert's
+    (.., E, D, 2F) gate|up and the (.., D, E) router, F for (.., E, F, D)),
+    or d for the dense (.., d, 2, F) gate|up."""
     if len(shape) >= 3 and shape[-2] == 2:       # (.., d, 2, F) gate|up
         return shape[-3]
     if len(shape) >= 2:

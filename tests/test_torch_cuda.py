@@ -654,3 +654,104 @@ def test_hybrid_path_on_the_card_matches_the_cpu(card, path):
     assert launched["flash_decode_attention"] > 0
     assert launched["chunked_prefill_attention_ref"] == 0
     assert launched["decode_attention_ref"] == 0
+
+
+# --- the uniform MoE family on the card ---------------------------------------
+
+MOE_ARCHS = ["qwen3_30b_a3b", "granite_moe_3b"]
+
+
+def _tiny_moe(arch, card):
+    """The tiny MoE config and its seeded f32 weights on the CPU and on
+    the card."""
+    import copy
+
+    from repro_torch.configs.base import get_tiny_config
+    from repro_torch.params import init_params
+
+    cfg = get_tiny_config(arch)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return cfg, p_cpu, copy.deepcopy(p_cpu).to(card)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_and_decode_on_the_card_match_the_cpu(card, arch):
+    """The tiny MoE config's chunked prefill logits and one ragged decode
+    step over the prefill's cache, card against CPU at 2e-4 in f32 (the
+    port's model tolerance), through the two kernels alone."""
+    from repro_torch.models.model import decode_step_ragged
+    from repro_torch.models.segments import MOE_OPS, SegmentedPrefill
+
+    cfg, p_cpu, p_gpu = _tiny_moe(arch, card)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 72))
+    out = {}
+    ops.reset_counts()
+    for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        ex = SegmentedPrefill(params, cfg, max_seq=128, chunk_tokens=32)
+        assert ex.ops == MOE_OPS
+        task = ex.start(toks, lens=[72, 50])
+        logits = ex.run_all(task)
+        lens = torch.tensor([72, 50], device=params.device)
+        dlog, k_new, _ = decode_step_ragged(
+            params, cfg, logits.argmax(-1), task.state["k_cache"],
+            task.state["v_cache"], lens)
+        out[where] = [x.cpu() for x in (logits, dlog, k_new)]
+    launched = ops.counts()
+    for a, b in zip(out["cpu"], out["cuda"]):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+    assert launched["flash_prefill_attention"] > 0
+    assert launched["flash_decode_attention"] > 0
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_apply_drops_the_same_pairs_on_the_card(card, arch):
+    """At a capacity factor of 0.5 the routed pairs overflow their experts:
+    the card's router picks the CPU's experts, keeps and drops the same
+    pairs, and its expert output agrees at 2e-5 in f32."""
+    from repro_torch.models import layers as L
+
+    cfg, p_cpu, p_gpu = _tiny_moe(arch, card)
+    k, E = cfg.experts_per_token, cfg.num_experts
+    x = torch.randn(2, 96, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    out = {}
+    for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        p = {key: t[1] for key, t in params["layers"].items()}
+        xd = x.to(params.device)
+        w, idx, _ = L.moe_router(xd, p["router"], k)
+        G, _, cap = L.moe_groups(xd.shape[0] * xd.shape[1], k, E, cfg.d_ff,
+                                 capacity_factor=0.5, min_capacity=4)
+        _, keep = L.moe_queue(idx, G, E, cap)
+        y = L.moe_apply(xd, w, idx, p["wi"], p["wd"], k=k,
+                        capacity_factor=0.5, min_capacity=4)
+        out[where] = [t.cpu() for t in (idx, keep, w, y)]
+    assert not out["cpu"][1].all()
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    for a, b in zip(out["cpu"][2:], out["cuda"][2:]):
+        torch.testing.assert_close(b, a, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("op", ["gate", "experts"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_suspend_resume_on_the_card_is_bit_exact(card, op, dtype):
+    """A tiny Qwen3-MoE prefill suspended right after the second chunk's
+    first `gate` (or `experts`) operator, with another prefill run in
+    between, resumes to logits `torch.equal` to an uninterrupted run."""
+    from repro_torch.models.segments import SegmentedPrefill
+
+    cfg, _, p_gpu = _tiny_moe("qwen3_30b_a3b", card)
+    p_gpu = p_gpu.to(dtype)
+    ex = SegmentedPrefill(p_gpu, cfg, max_seq=128, chunk_tokens=32,
+                          cache_dtype=dtype)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 96))
+    want = ex.run_all(ex.start(toks))
+    task = ex.start(toks)
+    spc = ex._segments_per_chunk
+    stop = spc + ex.ops.index(op) + 1      # the boundary right after `op`
+    while task.cursor < stop:
+        ex.step(task)
+    ex.run_all(ex.start(toks[:1, :40]))
+    got = ex.run_all(task)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

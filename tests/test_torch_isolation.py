@@ -18,7 +18,8 @@ COPIED = [
     "core/preemption.py", "core/predictor.py", "core/scheduler.py",
     "core/metrics.py", "core/dispatch.py", "core/prefixcache.py",
     "core/tieredcache.py", "core/faults.py",
-    "configs/base.py", "configs/llama3_8b.py",
+    "configs/base.py", "configs/llama3_8b.py", "configs/qwen3_30b_a3b.py",
+    "configs/granite_moe_3b.py",
 ]
 
 _IMPORT_ALL = """
