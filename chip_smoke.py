@@ -10,8 +10,9 @@ Phases; the first failure exits non-zero and prints no result:
  1. device: the card's name and power limit (nvidia-smi); build the CUDA
     sources of `src/repro_torch/kernels/csrc/` with nvcc, one process each,
     in parallel (timed). From the SASS (cuobjdump): the prefill kernel's
-    tensor-core body must hold wgmma (HGMMA) and TMA load (UTMALDG)
-    instructions; `decode_attn.cu` must hold the split-KV body and its
+    wgmma bodies must hold wgmma (HGMMA) and TMA load (UTMALDG)
+    instructions, its head_dim 256 body mma.sync (HMMA) and cp.async
+    (LDGSTS); `decode_attn.cu` must hold the split-KV body and its
     combine kernel alone, every body with cp.async (LDGSTS), the bf16 ones
     with mma.sync (HMMA) and the f32 ones without. With --ptxas, the
     registers, spills and shared memory of those bodies.
@@ -20,12 +21,16 @@ Phases; the first failure exits non-zero and prints no result:
     shapes and the Llama3-8B main-path shapes, in f32 (every element within
     2e-5) and bf16 (every element within 1e-5 + 1.6e-2 times the plain
     value); each prefill call must run the body its dtype and head_dim
-    select (the tensor-core body for bf16 at head_dim 64 or 128, by its
+    select (a tensor-core body for bf16 at head_dim 64, 128 or 256, by its
     launch counter); the verify kernel's column 0 must be bit-equal to the
     decode kernel at kv_len + 1; both wrappers must launch the one split-KV
     body (its counter). The main-path shapes are Llama3-8B's (K 8) and, for
     the prefill chunk512@3584 and the decode B4ragged, also Qwen3-30B-A3B's
-    (K 4: 8 query heads per KV head). At them in bf16 the kernel, the
+    (K 4: 8 query heads per KV head), and RecurrentGemma-9B's head_dim 256
+    with one KV head (a 4096-token prefill in a 2048 window, a resumed
+    chunk, a ragged ring decode, a verify case; timed: the prefill
+    `win2048@4096 hd256 K1` and the decode `B1ring2048 hd256`). At them in
+    bf16 the kernel, the
     plain version and one `F.scaled_dot_product_attention` call (a
     yardstick the port never calls) are timed with CUDA events (the calls
     queued behind a spin of the card, so host launch gaps are not timed),
@@ -43,7 +48,10 @@ Phases; the first failure exits non-zero and prints no result:
     one speculative-decoding run on the card whose tokens must equal the
     CPU's, and three concurrent requests through a `HybridInstance`
     (prefill and local decode on one worker) whose tokens must equal the
-    CPU's, through the two kernels alone.
+    CPU's, through the two kernels alone; and the tiny Mamba2 and
+    RecurrentGemma configs in f32, `prefill` logits and 8 `decode_step`
+    logits on the card against the CPU (2e-4), the hybrid's window of 32
+    wrapping during the decode.
  4. deployment: `repro_torch.launch.serve.build` at Llama3-8B's published
     width in bf16 with random weights, and its TTFT profile.
  5. preemption: a 2048-token prompt at operator granularity, suspended at
@@ -126,11 +134,27 @@ Phases; the first failure exits non-zero and prints no result:
     4096-token prefill and one B 4 decode step: the device time under
     `aten::bmm` (the expert products) and the idle share, beside the bytes
     bound of reading every expert.
+12. recurrent families at full width: Qwen3 released, Mamba2-370M and
+    RecurrentGemma-9B drawn at published width with random weights
+    (`torch.cuda.memory_allocated` before and after). Each prompt (4096
+    tokens; and 2040 for RecurrentGemma, whose decode then crosses position
+    2048) is prefilled and decoded 32 / 16 steps teacher-forced; at steps
+    {0, 1, 7, 31} / {0, 7, 8, 15} the decode logits must lie within 4 *
+    2^-7 * max|logit| of the last logits of a `prefill` of the prompt and
+    the next i + 1 tokens: Mamba2 in bf16; RecurrentGemma first in f32
+    (37.6 GB of weights), then in bf16, where the same comparison is
+    printed beside both paths' distance from the f32 logits (bf16 rounding
+    across its 38 layers exceeds the bound on random weights). In bf16
+    RecurrentGemma must launch the prefill kernel 12 times per prefill on
+    the body `TENSOR_CORE_HEAD_DIMS` declares and the decode kernel 12
+    times per step, no plain version. Prints prefill and median step times
+    and a profiler breakdown of one 4096-token prefill and one step of each.
 
 The line before the last holds the kernels' record: each kernel's launches
 by path (each path's counters zeroed just before it ran) and their sum, the
-times at Llama3-8B's main-path shape and, under "k4", at Qwen3-30B-A3B's;
-the last line is `{"ok": true, "device": {...}}`.
+times at Llama3-8B's main-path shape and, under "k4", at Qwen3-30B-A3B's,
+under "hd256" at RecurrentGemma-9B's; the last line is
+`{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -168,6 +192,11 @@ PREFILL_CASES = [
     (1, 8, 512, 16, 8, 64, 504, 512, True, 0),
     (2, 48, 64, 4, 2, 32, 0, 48, True, 0),
     (1, 40, 96, 4, 2, 16, 56, 96, True, 0),
+    # RecurrentGemma-9B's attention (head_dim 256, 16 query heads on one KV
+    # head, window 2048): a whole 4096-token prompt, and a resumed chunk at
+    # q_offset 3584 whose window binds
+    (1, 4096, 4096, 16, 1, 256, 0, 4096, True, 2048),
+    (1, 512, 4096, 16, 1, 256, 3584, 4096, True, 2048),
 ]
 DECODE_CASES = [
     # B, T, H, K, hd, per-row kv_len
@@ -176,6 +205,7 @@ DECODE_CASES = [
     (4, 128, 4, 1, 128, [77, 77, 77, 77]),
     (1, 1024, 16, 8, 64, [1000]),
     (4, 256, 4, 2, 32, [1, 77, 256, 130]),
+    (4, 2048, 16, 1, 256, [1, 700, 2048, 1500]),  # the hd 256 ring, ragged
 ]
 # the main paths: H 32, hd 128, a 4096-token cache per layer; K 8 is
 # Llama3-8B's, K 4 (8 query heads per KV head) Qwen3-30B-A3B's
@@ -206,12 +236,20 @@ VERIFY_CASES = [
     (4, 8, 129, 16, 2, 64, [0, 1, 64, 121]),    # 64 rows, the kernel's cap
     (2, 5, 45, 4, 2, 32, [0, 40]),
     (1, 5, 33, 4, 2, 16, [28]),
+    (2, 3, 2048, 16, 1, 256, [0, 2000]),        # hd 256, 48 rows
 ]
 # label, per-row kv_len (B 4, S 5 = draft_k 4 + 1)
 LLAMA_VERIFY = [("B4S5ragged", [1, 1000, 2600, 4091])]
 MAIN_PREFILL, MAIN_DECODE, MAIN_VERIFY = \
     "chunk512@3584", "B4ragged", "B4S5ragged"
 K4 = " K4"                                # the Qwen3-30B-A3B rows' suffix
+# RecurrentGemma-9B's main-path shapes (H 16, K 1, hd 256, window 2048): a
+# 4096-token prompt's prefill, and one decode row over a full 2048-slot ring
+HD256 = dict(H=16, K=1, hd=256, window=2048)
+MAIN_PREFILL_HD256, MAIN_DECODE_HD256 = \
+    "win2048@4096 hd256 K1", "B1ring2048 hd256"
+# teacher-forced decode checks of phase 12: the steps checked per prompt
+RECURRENT_CHECKS = {4096: (0, 1, 7, 31), 2040: (0, 7, 8, 15)}
 
 
 def fail(msg: str) -> None:
@@ -307,12 +345,15 @@ def breakdown(torch, label, fn, top: int = 6, cpu_ops=()) -> None:
               f"{100 * us / busy:.1f}% of the device time, x{n}")
 
 
-BODIES = ("prefill_tc_kernel", "split_kernel", "combine_kernel")
+BODIES = ("prefill_tc_kernel", "prefill_mma_kernel", "prefill_kernel",
+          "split_kernel", "combine_kernel")
 
 
 def kernel_label(fn: str):
     """(body, dtype, head_dim) of a mangled kernel name of BODIES."""
     body = next(b for b in BODIES if b in fn)
+    if body == "prefill_mma_kernel":            # not a template: bf16, 256
+        return body, "bf16", 256
     dtype = "f32" if re.search(r"IfLi\d+E", fn) else "bf16"
     return body, dtype, int(re.search(r"Li(\d+)E", fn).group(1))
 
@@ -337,9 +378,10 @@ def sass_counts(build, lib_path: str, ops_):
 
 
 def sass_report(build, libs) -> None:
-    """The prefill kernel's tensor-core bodies must hold wgmma (HGMMA) and
-    TMA loads (UTMALDG); `decode_attn.cu` must hold the split-KV body and
-    its combine kernel alone (2 dtypes x 4 head dims each), every body with
+    """The prefill kernel's wgmma bodies must hold wgmma (HGMMA) and TMA
+    loads (UTMALDG), its head_dim 256 body mma.sync (HMMA) and cp.async
+    (LDGSTS); `decode_attn.cu` must hold the split-KV body and
+    its combine kernel alone (2 dtypes x 5 head dims each), every body with
     cp.async (LDGSTS), the bf16 bodies with mma.sync (HMMA) and the f32
     bodies without (no TF32)."""
     pre = {fn: c for fn, c in sass_counts(
@@ -351,12 +393,21 @@ def sass_report(build, libs) -> None:
                                 for n in c.values()):
         fail("the tensor-core prefill bodies (hd 64, 128) lack HGMMA or "
              "UTMALDG instructions in their SASS")
+    mma = {fn: c for fn, c in sass_counts(
+        build, libs["flash_prefill"], ("HMMA", "LDGSTS", "HGMMA")).items()
+        if "prefill_mma_kernel" in fn}
+    for fn, c in mma.items():
+        print(f"SASS {kernel_label(fn)}: {json.dumps(c)}")
+    if len(mma) != 1 or not all(c["HMMA"] and c["LDGSTS"] and not c["HGMMA"]
+                                for c in mma.values()):
+        fail("the head_dim 256 prefill body lacks mma.sync (HMMA) or "
+             "cp.async (LDGSTS) instructions in its SASS")
     dec = sass_counts(build, libs["decode_attn"], ("HMMA", "LDGSTS"))
     for fn, c in sorted(dec.items(), key=lambda kv: kernel_label(kv[0])):
         print(f"SASS {kernel_label(fn)}: {json.dumps(c)}")
     split = [fn for fn in dec if "split_kernel" in fn]
-    if len(split) != 8 or len(dec) != 16 or \
-            sum("combine_kernel" in fn for fn in dec) != 8:
+    if len(split) != 10 or len(dec) != 20 or \
+            sum("combine_kernel" in fn for fn in dec) != 10:
         fail(f"decode_attn.cu holds {sorted(dec)}, not the split body and "
              "its combine kernel alone")
     for fn in split:
@@ -384,12 +435,16 @@ def ptxas_report(log: str, smem_bytes) -> None:
                   f"{smem_bytes(body, dtype, hd)}")
 
 
-def prefill_work(B, Sq, H, K, hd, q_offset, kv_len, es):
+def prefill_work(B, Sq, H, K, hd, q_offset, kv_len, es, window=0):
     """Operations and bytes a causal chunk needs: 4*hd per visible (query,
-    key) pair and head; q and o once, the keys below the last visible one
-    of k and v once."""
-    pairs = sum(max(0, min(kv_len, q_offset + i + 1)) for i in range(Sq))
-    keys = min(kv_len, q_offset + Sq)
+    key) pair and head; q and o once, and of k and v once each key that
+    some query sees (below the last visible one, and inside the first
+    query's window)."""
+    def first(i):
+        return max(0, q_offset + i - window + 1) if window else 0
+    pairs = sum(max(0, min(kv_len, q_offset + i + 1) - first(i))
+                for i in range(Sq))
+    keys = min(kv_len, q_offset + Sq) - first(0)
     ops_count = 4.0 * hd * H * B * pairs
     nbytes = es * B * (2 * Sq * H * hd + 2 * keys * K * hd)
     return ops_count, nbytes
@@ -1253,6 +1308,221 @@ def moe_phase(torch, np, ops, kcounts, build_deployment):
     return counts
 
 
+def tiny_recurrent_card_vs_cpu(torch, np, ops, arch) -> None:
+    """Phase 3's recurrent families: the tiny config in f32, `prefill`
+    logits and 8 `decode_step` logits on the card against the CPU (2e-4);
+    the tiny hybrid's window of 32 wraps during the decode (positions 28 to
+    35), and its attention must run the two kernels alone."""
+    from repro_torch.configs.base import get_tiny_config
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.params import init_params
+    cfg = get_tiny_config(arch)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    S = 28
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S + 8))
+    out = {}
+    for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        ops.reset_counts()
+        t = torch.from_numpy(toks).to(params.device)
+        logits, cache = prefill(params, cfg, {"tokens": t[:, :S]},
+                                max_seq=S + 8, cache_dtype=torch.float32)
+        steps = [logits]
+        for i in range(8):
+            logits, cache = decode_step(params, cfg, t[:, S + i], cache)
+            steps.append(logits)
+        out[where] = torch.stack(steps).cpu()
+    counts = ops.counts()
+    err = (out["cpu"] - out["cuda"]).abs().max().item()
+    print(f"{cfg.name}: prefill + 8 decode steps, card vs cpu max_abs_err "
+          f"{err:.3e} tol 2e-4; launches {json.dumps(counts)}", flush=True)
+    if not err <= 2e-4:
+        fail(f"tiny {cfg.name}: card and CPU differ by {err}")
+    if cfg.family == "hybrid" and (
+            counts["flash_prefill_attention"] != 1 or
+            counts["flash_decode_attention"] != 8 or
+            counts["chunked_prefill_attention_ref"] or
+            counts["decode_attention_ref"]):
+        fail(f"tiny {cfg.name} did not run its attention through the two "
+             "kernels alone")
+
+
+def recurrent_model_run(torch, np, ops, cfg, params, S, n_steps, checks,
+                        seed, reference=None):
+    """One prompt of S tokens through `prefill` and `n_steps` teacher-forced
+    `decode_step`s in the weights' dtype, counters zeroed before each of
+    the two. At each step i of `checks`, decode step i's logits are held
+    against the last logits of a `prefill` of the prompt and the next i + 1
+    tokens, within 4 * 2^-7 * max|logit| (phase 9's bound, four bf16 steps
+    at the logits' magnitude): a failure unless `reference` is given. With
+    `reference` ({i: the f32 prefill logits of the same tokens}) the
+    comparison is printed beside each path's RMS distance from the f32
+    logits, and not checked: the bf16 rounding of both paths is then what
+    it measures. Returns (prefill s, median step s, prefill launches,
+    decode launches, {i: f32 prefill logits})."""
+    from repro_torch.models.model import decode_step, prefill
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, S + n_steps))).to("cuda")
+    dtype = params.dtype
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.monotonic()
+    logits, cache = prefill(params, cfg, {"tokens": toks[:, :S]},
+                            max_seq=S + n_steps, cache_dtype=dtype)
+    torch.cuda.synchronize()
+    t_prefill = time.monotonic() - t0
+    print(f"  {cfg.name} {str(dtype)[6:]} prompt {S}: prefill peak "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f} GiB "
+          "above what was allocated before it (activations, intermediates "
+          "and cache)",
+          flush=True)
+    pre_counts = ops.counts()
+    ops.reset_counts()
+    steps, times = {}, []
+    for i in range(n_steps):
+        t0 = time.monotonic()
+        logits, cache = decode_step(params, cfg, toks[:, S + i], cache)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        if i in checks:
+            steps[i] = logits.float()
+    dec_counts = ops.counts()
+    if not torch.isfinite(logits.float()).all():
+        fail(f"{cfg.name}: non-finite decode logits")
+
+    def rms_from(x, ref):
+        return ((x - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+    worst, prefilled = 0.0, {}
+    for i, got in steps.items():
+        want, _ = prefill(params, cfg, {"tokens": toks[:, :S + i + 1]},
+                          cache_dtype=dtype)
+        want = want.float()
+        prefilled[i] = want
+        err = (got - want).abs().max().item()
+        limit = 4 * 2 ** -7 * want.abs().max().item()
+        worst = max(worst, err / limit)
+        line = (f"  {cfg.name} {str(dtype)[6:]} prompt {S}: step {i} "
+                f"(position {S + i}) "
+                f"against prefill of {S + i + 1} tokens: max_abs_err "
+                f"{err:.4e}, {err / limit:.4f} of 4*2^-7*max|logit| = "
+                f"{limit:.4f}; argmax equal "
+                f"{bool((got.argmax(-1) == want.argmax(-1)).all())}")
+        if reference is not None:
+            line += (f"; RMS distance from the f32 logits: decode "
+                     f"{rms_from(got, reference[i]):.4f}, prefill "
+                     f"{rms_from(want, reference[i]):.4f} (measured, not "
+                     "checked)")
+        print(line, flush=True)
+        if reference is None and not err <= limit:
+            fail(f"{cfg.name}: decode step {i} after a {S}-token prompt "
+                 f"differs from the prefill of {S + i + 1} tokens by {err} "
+                 f"(limit {limit})")
+    med = sorted(times)[len(times) // 2]
+    print(f"  {cfg.name} {str(dtype)[6:]} prompt {S}: prefill "
+          f"{t_prefill:.4f} s, decode "
+          f"step median {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+          f"{max(times) * 1e3:.2f}) over {n_steps} steps, synchronised; "
+          f"worst step {worst:.4f} of its bound", flush=True)
+    return t_prefill, med, pre_counts, dec_counts, prefilled
+
+
+def recurrent_phase(torch, np, ops):
+    """Phase 12: Mamba2-370M and RecurrentGemma-9B at published width in
+    bf16 with random weights, on a card the earlier phases have released.
+    RecurrentGemma's teacher-forced checks run first with f32 weights and
+    caches (37.6 GB), where the bound tests the decode's semantics with
+    rounding out of the way; its bf16 run then prints the same comparison
+    beside both paths' distance from those f32 logits. Returns
+    RecurrentGemma's launches by path."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_prefill import tensor_core_body
+    from repro_torch.models.model import _hybrid_counts, decode_step, prefill
+    from repro_torch.params import init_params
+    gib = 2 ** 30
+    prompts = {"ssm": ((4096, 32),), "hybrid": ((4096, 32), (2040, 16))}
+    by_path = {}
+    for arch in ("mamba2_370m", "recurrentgemma_9b"):
+        cfg = get_config(arch)
+        reference = {}
+        if cfg.family == "hybrid":
+            params = init_params(cfg, torch.Generator(
+                device="cuda").manual_seed(0), device="cuda",
+                dtype=torch.float32)
+            for S, n_steps in prompts[cfg.family]:
+                reference[S] = recurrent_model_run(
+                    torch, np, ops, cfg, params, S, n_steps,
+                    RECURRENT_CHECKS[S], seed=22 + S)[4]
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"\n{cfg.name}: memory allocated before build "
+              f"{torch.cuda.memory_allocated() / gib:.2f} GiB", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B params "
+              f"(param_count {cfg.param_count() / 1e9:.3f} B) in bf16, built "
+              f"in {time.monotonic() - t0:.1f} s; memory allocated after "
+              f"build {torch.cuda.memory_allocated() / gib:.2f} GiB, peak "
+              f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB", flush=True)
+        if cfg.family == "ssm":
+            print(f"  ssm: d_inner {cfg.d_inner}, state {cfg.ssm_state}, "
+                  f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, chunk "
+                  f"{cfg.ssm_chunk}")
+        else:
+            n_tri, tail = _hybrid_counts(cfg)
+            hd = cfg.resolved_head_dim
+            tc = tensor_core_body(torch.bfloat16, hd)
+            print(f"  hybrid: {n_tri} (rglru, rglru, attn) triples + {tail} "
+                  f"rglru; {cfg.num_heads} heads on {cfg.num_kv_heads} KV "
+                  f"head of {hd}, window {cfg.local_window}; prefill body "
+                  f"{'tensor cores' if tc else 'CUDA cores'} "
+                  "(TENSOR_CORE_HEAD_DIMS)")
+        for S, n_steps in prompts[cfg.family]:
+            _, _, pre, dec, _ = recurrent_model_run(
+                torch, np, ops, cfg, params, S, n_steps, RECURRENT_CHECKS[S],
+                seed=22 + S, reference=reference.get(S))
+            if cfg.family == "ssm":
+                continue
+            print(f"  prompt {S}: prefill launches {json.dumps(pre)}; "
+                  f"decode launches {json.dumps(dec)}", flush=True)
+            if pre["flash_prefill_attention"] != n_tri or \
+                    pre["flash_prefill_wgmma"] != (n_tri if tc else 0):
+                fail(f"{cfg.name}: the prefill launched the prefill kernel "
+                     f"{pre['flash_prefill_attention']} times "
+                     f"({pre['flash_prefill_wgmma']} on the tensor-core "
+                     f"body), not {n_tri} on the declared body")
+            if dec["flash_decode_attention"] != n_tri * n_steps:
+                fail(f"{cfg.name}: {n_steps} decode steps launched the decode "
+                     f"kernel {dec['flash_decode_attention']} times, not "
+                     f"{n_tri} per step")
+            for c in (pre, dec):
+                if c["chunked_prefill_attention_ref"] or \
+                        c["decode_attention_ref"]:
+                    fail(f"{cfg.name}: a plain attention version ran")
+            by_path[f"recurrentgemma prompt {S} (phase 12)"] = {
+                "flash_prefill_attention": pre["flash_prefill_attention"],
+                "flash_decode_attention": dec["flash_decode_attention"]}
+        toks = torch.from_numpy(np.random.default_rng(30).integers(
+            0, cfg.vocab_size, (1, 4096))).to("cuda")
+        breakdown(torch, f"{cfg.name} prefill 4096",
+                  lambda: prefill(params, cfg, {"tokens": toks}))
+        _, cache = prefill(params, cfg, {"tokens": toks})
+        step_tok = toks[:, -1]
+        breakdown(torch, f"{cfg.name} decode_step at position 4096",
+                  lambda: decode_step(params, cfg, step_tok, dict(cache)))
+        del params, cache, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def port_request(n):
     from repro_torch.core import Request
     return Request(num_tokens=n, slo=600.0, arrival=time.monotonic())
@@ -1322,10 +1592,10 @@ def main() -> None:
         dec_smem = build.load("decode_attn").decode_split_smem_bytes
 
         def smem(body, dtype, hd):
-            if body == "prefill_tc_kernel":
+            if body in ("prefill_tc_kernel", "prefill_mma_kernel"):
                 return f"{pre_smem(hd)} bytes"
-            if body == "combine_kernel":
-                return "0 bytes"
+            if body in ("combine_kernel", "prefill_kernel"):
+                return "0 bytes (static only)"
             return " / ".join(str(dec_smem(int(dtype == "bf16"), hd, t))
                               for t in (1, 2)) + " bytes (1 / 2+ query tiles)"
         for name in ("flash_prefill", "decode_attn"):
@@ -1369,7 +1639,8 @@ def main() -> None:
         if ops.counts()["flash_prefill_wgmma"] != int(tc):
             fail(f"prefill {tuple(q.shape)} {q.dtype}: the tensor-core body "
                  f"{'did not run' if tc else 'ran'}")
-        return out, ("wgmma" if tc else "cuda cores")
+        return out, ({256: "mma.sync"}.get(q.shape[-1], "wgmma") if tc
+                     else "cuda cores")
 
     record = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1556,12 +1827,57 @@ def main() -> None:
                     enable_gqa=True))
             row["max_abs_err"] = err
             record[name] = row
-    del pool_k, pool_v
+
+    # RecurrentGemma-9B's main-path shapes at head_dim 256, bf16: the prefill
+    # of a 4096-token prompt (CUDA-core body, L2-warm like the other prefill
+    # rows) and one decode row over the full ring (L2-cold by rotation)
+    Hr, Kr, hdr, win = HD256["H"], HD256["K"], HD256["hd"], HD256["window"]
+    dtype, es = torch.bfloat16, 2
+    print(f"\nRecurrentGemma-9B's shapes (H {Hr}, K {Kr}, hd {hdr}, window "
+          f"{win}), bf16")
+    q = randn((1, 4096, Hr, hdr), dtype)
+    k, v = randn((1, 4096, Kr, hdr), dtype), randn((1, 4096, Kr, hdr), dtype)
+    name = f"flash_prefill_attention {MAIN_PREFILL_HD256}"
+    got, body = prefill(q, k, v, 0, 4096, local_window=win)
+    err = check(f"{name} {body}", dtype, got, ref.chunked_prefill_attention_ref(
+        q, k, v, q_offset=0, kv_len=4096, local_window=win))
+    pos = torch.arange(4096, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row = dict(
+        ms=cuda_ms(torch, lambda: flash_prefill_attention(
+            q, k, v, 0, 4096, local_window=win)),
+        plain_ms=cuda_ms(torch, lambda: ref.chunked_prefill_attention_ref(
+            q, k, v, q_offset=0, kv_len=4096, local_window=win), iters=5),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        max_abs_err=err, body=body)
+    row["bound_ms"], row["bound_by"] = bound(*prefill_work(
+        1, 4096, Hr, Kr, hdr, 0, 4096, es, window=win))
+    record[name] = row
+    print(f"  {name}: {json.dumps(row)}; share of the bound "
+          f"{row['bound_ms'] / row['ms']:.4f}", flush=True)
+    q = randn((1, Hr, hdr), dtype)
+    k, v = randn((1, win, Kr, hdr), dtype), randn((1, win, Kr, hdr), dtype)
+    lens_t = torch.tensor([win], dtype=torch.int32, device=dev)
+    name = f"flash_decode_attention {MAIN_DECODE_HD256}"
+    err = check(name, dtype, flash_decode_attention(q, k, v, lens_t),
+                ref.decode_attention_ref(q, k, v, kv_len=lens_t))
+    row = timed(
+        name, (1, win, Kr, hdr), decode_work(Hr, Kr, hdr, [win], es),
+        kernel=lambda k, v: flash_decode_attention(q, k, v, lens_t),
+        plain=lambda k, v: ref.decode_attention_ref(q, k, v, kv_len=lens_t),
+        library=lambda k, v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True))
+    row["max_abs_err"] = err
+    record[name] = row
+    del pool_k, pool_v, q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
 
     # --- 3. tiny model, card against CPU -------------------------------------
-    phase("3. tiny Llama3-8B and Qwen3-MoE configs in f32: card against "
-          "CPU")
+    phase("3. tiny Llama3-8B, Qwen3-MoE, Mamba2 and RecurrentGemma configs "
+          "in f32: card against CPU")
 
     def tiny_card_vs_cpu(arch):
         """Prefill logits and one ragged decode step of a tiny config on
@@ -1671,6 +1987,8 @@ def main() -> None:
             counts["decode_attention_ref"]:
         fail("the tiny hybrid did not go through the two kernels alone")
     del p_cpu, p_gpu, handoffs
+    for arch in ("mamba2_370m", "recurrentgemma_9b"):
+        tiny_recurrent_card_vs_cpu(torch, np, ops, arch)
     if args.quick:
         print(f"\n--quick: stopped after phase 3 "
               f"({time.monotonic() - t_start:.1f} s)")
@@ -1794,6 +2112,15 @@ def main() -> None:
     phase("11. MoE: Qwen3-30B-A3B, published width, bf16, random weights")
     moe_counts = moe_phase(torch, np, ops, kcounts, build_deployment)
 
+    # --- 12. the recurrent families at full width ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("12. recurrent families: Mamba2-370M and RecurrentGemma-9B, "
+          "published width, bf16, random weights")
+    t0 = time.monotonic()
+    rec_counts = recurrent_phase(torch, np, ops)
+    print(f"phase 12 took {time.monotonic() - t0:.1f} s", flush=True)
+
     kernels = []
     for name, route, src, replaces, main in (
             ("flash_prefill_attention", "cuda",
@@ -1816,6 +2143,9 @@ def main() -> None:
         }[name]
         by_path["colocation (phase 10)"] = hybrid_counts[name]
         by_path["moe serve (phase 11)"] = moe_counts[name]
+        for path, c in rec_counts.items():
+            if name in c:
+                by_path[path] = c[name]
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         entry = {"name": name, "route": route, "source": src,
@@ -1824,6 +2154,11 @@ def main() -> None:
         if f"{name} {main}{K4}" in record:       # Qwen3-30B-A3B's shape
             k4 = record[f"{name} {main}{K4}"]
             entry["k4"] = {k: k4[k] for k in keys}
+        hd256 = {"flash_prefill_attention": MAIN_PREFILL_HD256,
+                 "flash_decode_attention": MAIN_DECODE_HD256}.get(name)
+        if hd256:                                # RecurrentGemma-9B's shape
+            row256 = record[f"{name} {hd256}"]
+            entry["hd256"] = {"shape": hd256, **{k: row256[k] for k in keys}}
         kernels.append(entry)
     print(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
     print(smi.stdout.strip().splitlines()[0])

@@ -24,17 +24,22 @@
 //
 // What the design does about it:
 //  * Split-KV. The grid is (splits, K, B); split j covers the fixed keys
-//    [128 j, 128 j + 128) of one (row b, KV head), whatever S, kv_len or T,
-//    so a row's arithmetic never depends on them. A block whose split lies
-//    past its row's last key exits at once. B 4 at kv_len 1/1000/2600/4096
-//    runs 496 blocks, B 1 over 3000 keys 192, on 132 SMs.
-//  * Each of the 4 warps owns 32 fixed keys of the split and loads them by
-//    cp.async (16 bytes a thread, K then V as two groups) into its own part
-//    of shared memory, kept in the input type: every load of the block is
-//    in flight at once, and the scores and softmax run while V arrives.
-//    Keys past the block's last visible key are zero-filled, never read.
-//    With one query tile the warps' merge rows lie over their own K rows,
-//    so a bf16 decode block at hd 128 takes 70 KB and three fit an SM.
+//    [SPLIT j, SPLIT j + SPLIT) of one (row b, KV head), whatever S, kv_len
+//    or T, so a row's arithmetic never depends on them. SPLIT is 128 keys
+//    (4 warps) up to head_dim 128 and 32 keys (1 warp) at head_dim 256,
+//    where a 128-key split of f32 K and V alone would take 266 KB of shared
+//    memory, and where a ring of 2048 keys behind one KV head
+//    (RecurrentGemma, B 1) would give 16 blocks for 132 SMs; 32-key splits
+//    give 64. A block whose split lies past its row's last key exits at
+//    once. B 4 at kv_len 1/1000/2600/4096 runs 496 blocks, B 1 over 3000
+//    keys 192, on 132 SMs.
+//  * Each warp owns 32 fixed keys of the split and loads them by cp.async
+//    (16 bytes a thread, K then V as two groups) into its own part of
+//    shared memory, kept in the input type: every load of the block is in
+//    flight at once, and the scores and softmax run while V arrives. Keys
+//    past the block's last visible key are zero-filled, never read. With
+//    one query tile the warps' merge rows lie over their own K rows, so a
+//    bf16 decode block at hd 128 takes 70 KB and three fit an SM.
 //  * The block holds all R rows of its KV head (r = s*Qg + g, in tiles of
 //    16) so each key serves every query that needs it. bf16: S = Q K^T and
 //    O = P V by mma.sync m16n8k16 (bf16 in, f32 sums), Q padded to 16 rows
@@ -65,15 +70,19 @@
 namespace {
 
 using repro::NEG_INF;
-using repro::sm90::ex2;
-using repro::sm90::smem_addr;
+using namespace repro::sm90;
 
-constexpr int SPLIT = 128;             // keys per split (one block)
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int WKEYS = SPLIT / NWARPS;  // keys per warp
+constexpr int WKEYS = 32;              // keys per warp
 constexpr int MT = 16;                 // query rows per tile (mma M)
 constexpr int MAX_ROWS = 64;           // S * Qg a block holds
+
+// warps of a split block, and keys per split (one block), by head_dim
+template <int HD>
+__host__ __device__ constexpr int nwarps() { return HD > 128 ? 1 : 4; }
+template <int HD>
+__host__ __device__ constexpr int split_keys() {
+  return WKEYS * nwarps<HD>();
+}
 
 struct Args {
   const void* q;
@@ -82,7 +91,7 @@ struct Args {
   const int* kv_len;
   void* o;
   float* ws;                           // (B, K, splits, R, hd) acc, then m, l
-  int S, T, qg, R, shift, nsplit;
+  int S, T, qg, R, shift, split, nsplit;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;
   float scale_log2;                    // log2(e) / sqrt(hd)
 };
@@ -90,45 +99,6 @@ struct Args {
 // one past the last key row r of batch row b sees (0: none)
 __device__ __forceinline__ int row_end(const Args& a, int first, int r) {
   return min(max(first + r / a.qg + 1, 0), a.T);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b, m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
 }
 
 // Shared memory of one block: the warps' K and V rows (padded by 16 bytes,
@@ -140,6 +110,8 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
 // written while K is still read, needs the separate area at the end.
 template <typename T, int HD>
 struct Smem {
+  static constexpr int NWARPS = nwarps<HD>();
+  static constexpr int SPLIT = split_keys<HD>();
   static constexpr bool ALIAS = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int KSTR = HD + 16 / sizeof(T);   // elements per K/V row
   static constexpr int MSTR = HD + 8;                // floats per merge row
@@ -210,8 +182,8 @@ __device__ __forceinline__ void warp_tile_bf16(
     for (int kk = 0; kk < HD / 16; ++kk) {
       uint32_t kb[4];
       ldsm_x4(kb, k_s + key * SM::KSTR + 16 * kk + ((lane / 8) % 2) * 8);
-      mma(s[2 * n2], qa[kk], kb[0], kb[1]);
-      mma(s[2 * n2 + 1], qa[kk], kb[2], kb[3]);
+      mma_m16n8k16(s[2 * n2], qa[kk], kb[0], kb[1]);
+      mma_m16n8k16(s[2 * n2 + 1], qa[kk], kb[2], kb[3]);
     }
   }
 
@@ -292,10 +264,10 @@ __device__ __forceinline__ void warp_tile_bf16(
     for (int dp = 0; dp < HD / 16; ++dp) {
       uint32_t vb[4];
       ldsm_x4_t(vb, v_s + key * SM::KSTR + 16 * dp + (lane / 16) * 8);
-      mma(acc[2 * dp], p_hi[kk], vb[0], vb[1]);
-      mma(acc[2 * dp], p_lo[kk], vb[0], vb[1]);
-      mma(acc[2 * dp + 1], p_hi[kk], vb[2], vb[3]);
-      mma(acc[2 * dp + 1], p_lo[kk], vb[2], vb[3]);
+      mma_m16n8k16(acc[2 * dp], p_hi[kk], vb[0], vb[1]);
+      mma_m16n8k16(acc[2 * dp], p_lo[kk], vb[0], vb[1]);
+      mma_m16n8k16(acc[2 * dp + 1], p_hi[kk], vb[2], vb[3]);
+      mma_m16n8k16(acc[2 * dp + 1], p_lo[kk], vb[2], vb[3]);
     }
   }
 
@@ -376,13 +348,17 @@ __device__ __forceinline__ void warp_tile_f32(
 }
 
 // One block per (split, KV head, batch row): the states of the split's
-// 128 keys for every query row, written to the workspace.
+// keys for every query row, written to the workspace.
 // bf16 blocks of a single query tile take 70 KB of shared memory at hd
-// 128, so three fit an SM when their registers do too.
+// 128, so three fit an SM when their registers do too; at hd 256 a block
+// is one warp.
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS, Smem<T, HD>::ALIAS ? 3 : 1)
+__global__ void __launch_bounds__(32 * nwarps<HD>(),
+                                  Smem<T, HD>::ALIAS && HD <= 128 ? 3 : 1)
 split_kernel(const Args a) {
   using SM = Smem<T, HD>;
+  constexpr int NWARPS = SM::NWARPS, SPLIT = SM::SPLIT;
+  constexpr int NTHREADS = 32 * NWARPS;
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   T* k_all = reinterpret_cast<T*>(smem);
@@ -498,7 +474,9 @@ split_kernel(const Args a) {
 // HD at a time.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD) combine_kernel(const Args a) {
-  constexpr int CU = HD < 32 ? HD : 32;
+  constexpr int SPLIT = split_keys<HD>();
+  // splits whose acc are loaded before the max is known
+  constexpr int CU = HD > 128 ? 64 : (HD < 32 ? HD : 32);
   __shared__ float m_s[HD], l_s[HD];
   const int r = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
   const int K = gridDim.y;
@@ -560,6 +538,9 @@ template <typename T, int HD>
 int launch(const Args& a, int B, int K, cudaStream_t stream) {
   // above 48 KB of shared memory a launch needs the opt-in; it is a
   // property of the function, so setting it twice from two threads is fine
+  if (a.split != split_keys<HD>()) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   static bool opted = false;
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -569,7 +550,8 @@ int launch(const Args& a, int B, int K, cudaStream_t stream) {
     opted = true;
   }
   const size_t smem = Smem<T, HD>::bytes((a.R + MT - 1) / MT);
-  split_kernel<T, HD><<<dim3(a.nsplit, K, B), NTHREADS, smem, stream>>>(a);
+  split_kernel<T, HD><<<dim3(a.nsplit, K, B), 32 * nwarps<HD>(), smem,
+                        stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -591,7 +573,8 @@ int launch(const Args& a, int B, int K, cudaStream_t stream) {
 // (B,T,K,hd); the (head, dim) axes of all four are dense, and k/v rows are
 // 16-byte aligned. kv_len is a (B,) int32 device array. ws is an f32
 // workspace of ws_floats >= B*K*ceil(T/split_keys)*S*(H/K)*(hd+2) elements;
-// split_keys must be the kernel's SPLIT. dtype: 0 = float32, 1 = bfloat16.
+// split_keys must be the body's keys per split at this head_dim
+// (`decode_split_keys`). dtype: 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after the launches.
 extern "C" int flash_decode_verify_attention(
     const void* q, const void* k, const void* v, const int* kv_len, void* o,
@@ -600,13 +583,14 @@ extern "C" int flash_decode_verify_attention(
     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     long long o_sb, long long o_ss, float scale, void* stream) {
   if (K <= 0 || S <= 0 || T_len <= 0 || H % K != 0 ||
-      S * (H / K) > MAX_ROWS || split_keys != SPLIT) {
+      S * (H / K) > MAX_ROWS || split_keys <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
   a.q = q; a.k = k; a.v = v; a.kv_len = kv_len; a.o = o; a.ws = ws;
   a.S = S; a.T = T_len; a.qg = H / K; a.R = S * a.qg; a.shift = shift;
-  a.nsplit = (T_len + SPLIT - 1) / SPLIT;
+  a.split = split_keys;
+  a.nsplit = (T_len + split_keys - 1) / split_keys;
   a.q_sb = q_sb; a.q_ss = q_ss; a.k_sb = k_sb; a.k_ss = k_ss;
   a.v_sb = v_sb; a.v_ss = v_ss; a.o_sb = o_sb; a.o_ss = o_ss;
   a.scale_log2 = scale * 1.4426950408889634f;
@@ -620,6 +604,7 @@ extern "C" int flash_decode_verify_attention(
     case 32: return launch<TYPE, 32>(a, B, K, s);             \
     case 64: return launch<TYPE, 64>(a, B, K, s);             \
     case 128: return launch<TYPE, 128>(a, B, K, s);           \
+    case 256: return launch<TYPE, 256>(a, B, K, s);           \
     default: return static_cast<int>(cudaErrorInvalidValue);  \
   }
   if (dtype == 0) {
@@ -641,6 +626,7 @@ extern "C" int decode_split_smem_bytes(int dtype, int hd, int tiles) {
     case 32: return static_cast<int>(Smem<TYPE, 32>::bytes(tiles));    \
     case 64: return static_cast<int>(Smem<TYPE, 64>::bytes(tiles));    \
     case 128: return static_cast<int>(Smem<TYPE, 128>::bytes(tiles));  \
+    case 256: return static_cast<int>(Smem<TYPE, 256>::bytes(tiles));  \
     default: return 0;                                                 \
   }
   if (dtype == 0) {
@@ -650,6 +636,18 @@ extern "C" int decode_split_smem_bytes(int dtype, int hd, int tiles) {
   }
 #undef REPRO_SMEM
   return 0;
+}
+
+// keys per split of the body at a head_dim (0 for one it does not take)
+extern "C" int decode_split_keys(int hd) {
+  switch (hd) {
+    case 16: return split_keys<16>();
+    case 32: return split_keys<32>();
+    case 64: return split_keys<64>();
+    case 128: return split_keys<128>();
+    case 256: return split_keys<256>();
+    default: return 0;
+  }
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -12,7 +12,7 @@
 // q/k/v/o in bf16, about 1300 FLOP per byte, far above the card's ~295 bf16
 // FLOP per byte of HBM, so the bound is the arithmetic rate.
 //
-// Two bodies; the C entry point picks one by dtype and head_dim:
+// Three bodies; the C entry point picks one by dtype and head_dim:
 //
 // * bf16 at head_dim 64 or 128 (all of Llama3-8B's prefill attention):
 //   `prefill_tc_kernel`, on the tensor cores.
@@ -62,6 +62,12 @@
 //      blocks), packing the 4 query heads of a KV head into one block, a
 //      TMA store of O.
 //
+// * bf16 at head_dim 256 (RecurrentGemma's): `prefill_mma_kernel`, on the
+//   tensor cores by mma.sync (its note is at the kernel). The wgmma body
+//   does not fit there: Q and three stages of 128-key K and V tiles take
+//   448 KB of shared memory at 256 columns, against 227 KB, and a 64-row O
+//   accumulator is 128 f32 registers a thread before S and P.
+//
 // * f32 at every head_dim, and bf16 at head_dim 16 or 32: `prefill_kernel`,
 //   f32 FMA on the CUDA cores (never TF32: the f32 tolerance is 2e-5).
 //    - One block per (64-query tile, b*H+h); the KV loop is inside the
@@ -69,12 +75,13 @@
 //      parallel).
 //    - Four threads own one query row. Each keeps its quarter of the row's
 //      q and of the f32 accumulator in registers, together with the online-
-//      softmax state (m, l) and the row's 32 scores of the current tile, so
+//      softmax state (m, l) and the row's scores of the current tile, so
 //      the softmax never touches shared or device memory.
-//    - K/V tiles of 32 keys are staged in shared memory in the input type
-//      and read by every row of the block; the four threads of a row read 4
-//      consecutive 4-element vectors, so the reads are free of bank
-//      conflicts and broadcast across rows.
+//    - K/V tiles of 32 keys (16 for f32 at head_dim 256, so that the two
+//      tiles stay within 48 KB of static shared memory) are staged in shared
+//      memory in the input type and read by every row of the block; the
+//      four threads of a row read 4 consecutive 4-element vectors, so the
+//      reads are free of bank conflicts and broadcast across rows.
 //    - Keys at or past kv_len are loaded as zeros.
 //
 // Both bodies skip whole tiles above the causal diagonal, at or past kv_len,
@@ -98,7 +105,6 @@ using repro::pack;
 using repro::unpack;
 
 constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 32;                 // keys per shared-memory tile
 constexpr int G = 4;                   // threads per query row
 constexpr int NTHREADS = BQ * G;
 
@@ -111,6 +117,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                long long v_sb, long long v_ss, long long o_sb, long long o_ss,
                int q_offset, int kv_len, int causal, int window, float scale) {
   using VT = typename repro::Vec4<T>::type;
+  // keys per shared-memory tile: K and V tiles take 2 * BK * HD * sizeof(T)
+  constexpr int BK = sizeof(T) * HD > 512 ? 16 : 32;
   constexpr int NV = HD / VEC;         // vectors per row
   constexpr int NC = NV / G;           // vectors per thread
   __shared__ VT k_s[BK][NV];
@@ -260,10 +268,6 @@ struct Smem {
 template <int HD>
 constexpr size_t smem_bytes() {
   return sizeof(Smem<HD>) + 1024;      // room to align the base to 1024
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
 }
 
 // the O accumulator's product for one 16-key slice
@@ -649,6 +653,257 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace tc
 
+namespace hd256 {
+
+using namespace repro::sm90;
+using bf16 = __nv_bfloat16;
+
+constexpr int HD = 256;
+constexpr int WARPS = 4;
+constexpr int BQ = 16 * WARPS;         // query rows per block, 16 a warp
+constexpr int BK = 32;                 // keys per K/V tile
+constexpr int NTHREADS = 32 * WARPS;
+constexpr int STR = HD + 8;            // elements per shared row (16-byte pad)
+constexpr int CPR = HD * 2 / 16;       // 16-byte chunks per row
+// Q, then two stages of K and of V
+constexpr size_t SMEM = sizeof(bf16) * STR * (BQ + 4 * BK);
+
+// bf16 at head_dim 256 on the tensor cores by mma.sync m16n8k16: one block
+// per (64-query tile, b*H+h), four warps of 16 query rows. Q stays in shared
+// memory and is read by ldmatrix per 16-wide slice of hd, so a thread holds
+// only its 16 x 256 f32 accumulator (128 registers), one tile's scores and
+// its two-term P. K/V tiles of 32 keys arrive by cp.async into two stages
+// (zero past kv_len), the next tile loading while this one is computed. S =
+// Q K^T and O += P V run as the split-KV decode body's warp tile does (the
+// same fragments, P as two bf16 terms); the online softmax carries each
+// row's max and sum across tiles, masks only edge tiles and zeroes p under
+// the mask after the exp.
+__global__ void __launch_bounds__(NTHREADS, 2)
+prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
+                   int T_len, int H, int K, long long q_sb, long long q_ss,
+                   long long k_sb, long long k_ss, long long v_sb,
+                   long long v_ss, long long o_sb, long long o_ss,
+                   int q_offset, int kv_len, int causal, int window,
+                   float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + BQ * STR;          // [2][BK][STR]
+  bf16* v_s = k_s + 2 * BK * STR;      // [2][BK][STR]
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / K);
+  const int q_start = blockIdx.x * BQ;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = lane / 4, tig = lane % 4;
+
+  // block-level tile bounds (the reference's skip tests)
+  const int kv_end = min(kv_len, T_len);
+  const int q_lo = q_offset + q_start;
+  const int q_hi = q_offset + min(q_start + BQ, Sq) - 1;
+  int k_stop = kv_end;
+  if (causal) k_stop = min(k_stop, q_hi + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q_lo - window + 1);
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_stop > k_begin ? (k_stop - k_begin + BK - 1) / BK : 0;
+
+  const bf16* qg = q + b * q_sb + (long long)h * HD;
+  for (int i = tid; i < BQ * CPR; i += NTHREADS) {
+    const int r = i / CPR, c = i % CPR, row = q_start + r;
+    const bool ok = row < Sq;
+    cp_async16(q_s + r * STR + c * 8,
+               ok ? qg + (long long)row * q_ss + c * 8 : qg, ok);
+  }
+  const bf16* kg = k + b * k_sb + (long long)kvh * HD;
+  const bf16* vg = v + b * v_sb + (long long)kvh * HD;
+  auto load_tile = [&](int t) {
+    const int st = t % 2, k_lo = k_begin + t * BK;
+    for (int i = tid; i < BK * CPR; i += NTHREADS) {
+      const int j = i / CPR, c = i % CPR, key = k_lo + j;
+      const bool ok = key < kv_end;
+      cp_async16(k_s + (st * BK + j) * STR + c * 8,
+                 ok ? kg + (long long)key * k_ss + c * 8 : kg, ok);
+      cp_async16(v_s + (st * BK + j) * STR + c * 8,
+                 ok ? vg + (long long)key * v_ss + c * 8 : vg, ok);
+    }
+  };
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();                   // Q and tile 0
+
+  // rows r0 (i = 0) and r0 + 8 (i = 1) of the block; the warp's positions
+  const int r0 = 16 * warp + grp;
+  const int w_lo = q_lo + 16 * warp;
+  const int w_hi = w_lo + 15;
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};   // row max, in log2 units
+  float l_run[2] = {0.f, 0.f};         // this thread's part of the row sums
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_tile(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                // tile t (and Q) have landed
+    __syncthreads();
+    const int k_lo = k_begin + t * BK;
+    const bf16* ks = k_s + (t % 2) * BK * STR;
+    const bf16* vs = v_s + (t % 2) * BK * STR;
+
+    // S = Q K^T: four n8 tiles of 8 keys over 16 slices of hd
+    float s[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[4];
+      ldsm_x4(qa, q_s + (16 * warp + lane % 8 + ((lane / 8) % 2) * 8) * STR +
+                      16 * kk + (lane / 16) * 8);
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + (16 * n2 + (lane / 16) * 8 + lane % 8) * STR +
+                        16 * kk + ((lane / 8) % 2) * 8);
+        mma_m16n8k16(s[2 * n2], qa, kb[0], kb[1]);
+        mma_m16n8k16(s[2 * n2 + 1], qa, kb[2], kb[3]);
+      }
+    }
+
+    // online softmax: element (n, c) is key k_lo + 8n + 2 tig + c % 2 of
+    // row r0 (c < 2) or r0 + 8 (c >= 2); only tiles that cross kv_len, the
+    // diagonal or the window edge of the warp's rows are masked
+    const bool edge = k_lo + BK > kv_end ||
+                      (causal && k_lo + BK - 1 > w_lo) ||
+                      (window > 0 && k_lo <= w_hi - window);
+    uint32_t hidden = 0;               // bit 4n + c: element (n, c) masked
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = k_lo + 8 * n + 2 * tig + (c & 1);
+          const int qpos = w_lo + grp + 8 * (c / 2);
+          bool ok = key < kv_end;
+          if (causal) ok = ok && key <= qpos;
+          if (window > 0) ok = ok && key > qpos - window;
+          hidden |= (ok ? 0u : 1u) << (4 * n + c);
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[n][c] *= scale_log2;
+        if ((hidden >> (4 * n + c)) & 1u) s[n][c] = repro::NEG_INF;
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float x = fmaxf(s[0][2 * i], s[0][2 * i + 1]);
+#pragma unroll
+      for (int n = 1; n < 4; ++n) x = fmaxf(x, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m_run[i], x);
+      alpha[i] = ex2(m_run[i] - m_new);
+      m_run[i] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[n][c] = ex2(s[n][c] - m_run[c / 2]);
+        // p is zeroed under the mask after the exp: a row that has seen no
+        // key yet would otherwise get exp(0) = 1 from the fill
+        if ((hidden >> (4 * n + c)) & 1u) s[n][c] = 0.f;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float x = 0.f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) x += s[n][2 * i] + s[n][2 * i + 1];
+      l_run[i] = l_run[i] * alpha[i] + x;
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // O += P_hi V + P_lo V, one 16-key slice at a time (P in the
+    // register-A layout, as two bf16 terms, packed just before its slice's
+    // products); ldmatrix.trans gives the B fragments of two 8-wide slices
+    // of hd
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t p_hi[4], p_lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = s[2 * kk + r / 2][2 * (r % 2)];
+        const float x1 = s[2 * kk + r / 2][2 * (r % 2) + 1];
+        const uint32_t b0 = __float_as_uint(x0), b1 = __float_as_uint(x1);
+        p_hi[r] = __byte_perm(b0, b1, 0x7632);       // the two top halves
+        p_lo[r] = bits(__floats2bfloat162_rn(
+            x0 - __uint_as_float(b0 & 0xffff0000u),
+            x1 - __uint_as_float(b1 & 0xffff0000u)));
+      }
+      const int key = 16 * kk + ((lane / 8) % 2) * 8 + lane % 8;
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vs + key * STR + 16 * dp + (lane / 16) * 8);
+        mma_m16n8k16(acc[2 * dp], p_hi, vb[0], vb[1]);
+        mma_m16n8k16(acc[2 * dp], p_lo, vb[0], vb[1]);
+        mma_m16n8k16(acc[2 * dp + 1], p_hi, vb[2], vb[3]);
+        mma_m16n8k16(acc[2 * dp + 1], p_lo, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();                   // this stage is reloaded at t + 2
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / (l == 0.f ? 1.f : l);
+    const int row = q_start + r0 + 8 * i;
+    if (row < Sq) {
+      bf16* op = o + b * o_sb + (long long)row * o_ss + h * HD + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+            __floats2bfloat162_rn(acc[j][2 * i] * inv,
+                                  acc[j][2 * i + 1] * inv);
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int T_len, int H, int K, long long q_sb, long long q_ss,
+           long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+           long long o_sb, long long o_ss, int q_offset, int kv_len,
+           int causal, int window, float scale, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  prefill_mma_kernel<<<grid, NTHREADS, SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, T_len, H, K,
+      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, q_offset, kv_len,
+      causal, window, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hd256
+
 template <typename T, int HD>
 void launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
             int T_len, int H, int K, long long q_sb, long long q_ss,
@@ -667,8 +922,10 @@ void launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the (head, dim)
 // axes of q, k, v and o are dense. bf16 at head_dim 64 or 128 runs the
-// tensor-core body and sets *tensor_core to 1; everything else runs the
-// CUDA-core body and sets it to 0. Returns cudaGetLastError() after launch,
+// wgmma body, bf16 at 256 the mma.sync body, and both set *tensor_core to
+// 1; everything else (f32 at 16, 32, 64, 128 or 256; bf16 at 16 or 32)
+// runs the CUDA-core body and sets it to 0. Returns cudaGetLastError()
+// after launch,
 // or the error that stopped it.
 extern "C" int flash_prefill_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
@@ -677,7 +934,12 @@ extern "C" int flash_prefill_attention(
     long long o_sb, long long o_ss, int q_offset, int kv_len, int causal,
     int window, float scale, void* stream, int* tensor_core) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *tensor_core = dtype == 1 && (hd == 64 || hd == 128);
+  *tensor_core = dtype == 1 && (hd == 64 || hd == 128 || hd == 256);
+  if (*tensor_core && hd == 256) {
+    return hd256::launch(q, k, v, o, B, Sq, T_len, H, K, q_sb, q_ss, k_sb,
+                         k_ss, v_sb, v_ss, o_sb, o_ss, q_offset, kv_len,
+                         causal, window, scale, s);
+  }
   if (*tensor_core) {
     return (hd == 64 ? tc::launch<64> : tc::launch<128>)(
         q, k, v, o, B, Sq, T_len, H, K, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
@@ -693,6 +955,7 @@ extern "C" int flash_prefill_attention(
       case 32: REPRO_PREFILL_CASE(float, 32); break;
       case 64: REPRO_PREFILL_CASE(float, 64); break;
       case 128: REPRO_PREFILL_CASE(float, 128); break;
+      case 256: REPRO_PREFILL_CASE(float, 256); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else if (dtype == 1) {
@@ -708,8 +971,9 @@ extern "C" int flash_prefill_attention(
   return static_cast<int>(cudaGetLastError());
 }
 
-// dynamic shared memory of one tensor-core block at head_dim 64 or 128
+// dynamic shared memory of one tensor-core block at head_dim 64, 128 or 256
 extern "C" int flash_prefill_tc_smem_bytes(int hd) {
+  if (hd == 256) return static_cast<int>(hd256::SMEM);
   return static_cast<int>(hd == 64 ? tc::smem_bytes<64>()
                                    : tc::smem_bytes<128>());
 }

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks for the attention kernels, as inline PTX:
 // mbarriers, TMA tile loads into shared memory, shared-memory matrix
 // descriptors for 128-byte-swizzled tiles, and warpgroup MMA (wgmma) with
-// bf16 operands and f32 accumulators.
+// bf16 operands and f32 accumulators; and the warp-level pieces (cp.async,
+// ldmatrix, mma.sync m16n8k16) of the split-KV decode body and the head_dim
+// 256 prefill body.
 //
 // Layouts the helpers assume (PTX ISA, "Asynchronous Warpgroup Level Matrix
 // Multiply-Accumulate"):
@@ -21,6 +23,8 @@
 //    takes the same rows: register r holds columns 2(lane%4) + 8(r/2) and the
 //    next one of row lane/4 + 8(r%2), packed low half first.
 #pragma once
+#include <cuda_bf16.h>
+
 #include <cstdint>
 
 namespace repro::sm90 {
@@ -209,6 +213,48 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- cp.async, ldmatrix and mma.sync (warp-level tensor cores) ------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b, m16n8k16, bf16 operands, f32 accumulators (mma.sync)
+__device__ __forceinline__ void mma_m16n8k16(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
 }
 
 }  // namespace repro::sm90

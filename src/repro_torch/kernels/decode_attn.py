@@ -1,7 +1,8 @@
 """Flash-decode GQA attention as one CUDA kernel body for Hopper
 (`csrc/decode_attn.cu`, whose header note says what bounds it and how it is
-laid out: split-KV over fixed 128-key splits, cp.async loads, bf16 products
-on the tensor cores, and a second kernel that combines the splits):
+laid out: split-KV over fixed splits of 128 keys (32 at head_dim 256),
+cp.async loads, bf16 products on the tensor cores, and a second kernel that
+combines the splits):
 
   * `flash_decode_attention` — one new token per row against that row's KV
     view with a per-row valid length (plain version
@@ -30,8 +31,14 @@ from repro_torch.kernels.flash_prefill import (DTYPES, HEAD_DIMS,
 
 MAX_QG = 16                     # query heads per KV head the decode wrapper takes
 MAX_ROWS = 64                   # S * (H / K) query rows the body holds
-SPLIT_KEYS = 128                # keys per split (the body's SPLIT)
+SPLIT_KEYS = 128                # keys per split up to head_dim 128
 BODY = "decode_split_body"      # launch counter of the shared body
+
+
+def split_keys(hd: int) -> int:
+    """Keys per split block of the body at head_dim `hd` (its SPLIT): one
+    warp of 32 keys at head_dim 256, four warps below."""
+    return 32 if hd > 128 else SPLIT_KEYS
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -68,14 +75,15 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if T == 0:                  # no key: every row is 0, nothing to launch
         return out.zero_()
-    splits = -(-T // SPLIT_KEYS)
+    split = split_keys(hd)
+    splits = -(-T // split)
     n_ws = B * K * splits * S * (H // K) * (hd + 2)
     ws = torch.empty((n_ws,), dtype=torch.float32, device=q.device)
     lib, fn = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     (k_sb, k_ss), (v_sb, v_ss) = tma_strides(k), tma_strides(v)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-             out.data_ptr(), ws.data_ptr(), n_ws, SPLIT_KEYS,
+             out.data_ptr(), ws.data_ptr(), n_ws, split,
              DTYPES[q.dtype], B, S, T, H, K, hd, shift,
              q.stride(0), q.stride(1), k_sb, k_ss, v_sb, v_ss,
              out.stride(0), out.stride(1), 1.0 / math.sqrt(hd), stream)

@@ -7,11 +7,14 @@ Counterpart of `flash_prefill_attention` in src/repro/kernels/flash_prefill.py.
 resume after a preemption rebuilds or respecialises the kernel. The plain
 version is `kernels.ref.chunked_prefill_attention_ref`.
 
-The kernel has two bodies, chosen by dtype and head_dim in its C entry point:
-bf16 at head_dim 64 or 128 runs on the tensor cores (wgmma, K/V by TMA,
-P split into two bf16 terms); f32 at every head_dim and bf16 at 16 or 32 run
-on the CUDA cores in f32. Every launch counts `flash_prefill_attention`, and
-a tensor-core launch also counts `flash_prefill_wgmma`.
+The kernel has three bodies, chosen by dtype and head_dim in its C entry
+point: bf16 at head_dim 64 or 128 runs on the tensor cores by wgmma (K/V by
+TMA, P split into two bf16 terms); bf16 at 256 on the tensor cores by
+mma.sync (K/V by cp.async, the same two-term P), where the wgmma body's
+tiles do not fit in shared memory; f32 at every head_dim and bf16 at 16 or
+32 run on the CUDA cores in f32. Every launch counts
+`flash_prefill_attention`, and a launch of either tensor-core body also
+counts `flash_prefill_wgmma`.
 """
 from __future__ import annotations
 
@@ -23,9 +26,9 @@ import torch
 
 from repro_torch.kernels import build, counts
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -63,8 +66,8 @@ def check_operand(name: str, x: torch.Tensor, device, dtype, hd: int) -> None:
     """Raise unless `x` is a CUDA tensor of the kernel's type whose last two
     axes (heads, head_dim) are dense and whose strides and address allow the
     body's accesses: 4-element vectors on the CUDA cores; on the tensor
-    cores, TMA's 16-byte-aligned address and strides in multiples of 16
-    bytes."""
+    cores, TMA's (or cp.async's) 16-byte-aligned address and strides in
+    multiples of 16 bytes."""
     if x.device != device or x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor on {device}, "
                          f"got {x.device}")
@@ -95,8 +98,8 @@ def flash_prefill_attention(
     local_window: int = 0,
 ) -> torch.Tensor:
     """Chunked-causal flash attention on the card. Returns (B, Sq, H, hd) in
-    q's dtype; rows with no visible key are 0. bf16 at head_dim 64 or 128
-    runs the tensor-core body, everything else the f32 CUDA-core body."""
+    q's dtype; rows with no visible key are 0. bf16 at head_dim 64, 128 or
+    256 runs a tensor-core body, everything else the f32 CUDA-core body."""
     B, Sq, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:

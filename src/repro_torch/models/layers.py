@@ -1,13 +1,17 @@
-"""Model building blocks of the dense and uniform MoE families: RMSNorm,
-split-half RoPE, SwiGLU, the top-k MoE FFN and the reference attention.
+"""Model building blocks of the ported families: RMSNorm, split-half RoPE,
+SwiGLU, the top-k MoE FFN, the reference attention, and the recurrent
+layers (the depthwise causal conv, RG-LRU and Mamba2's chunked SSD).
 
 Counterpart of src/repro/models/layers.py (the ported families' part of
 it). Plain functions on tensors; the large matrix products are
-`torch.matmul` and, for the experts, `torch.bmm`.
+`torch.matmul` and, for the experts, `torch.bmm`. Where the reference
+scans with `lax.associative_scan`, the port uses a log-depth scan of
+tensor ops (RG-LRU) or a loop over chunks (SSD), never a Python loop over
+the sequence.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -15,7 +19,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ref import naive_attention
 
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "swiglu", "moe_router",
-           "moe_apply", "moe_ffn", "naive_attention"]
+           "moe_apply", "moe_ffn", "naive_attention", "causal_conv1d",
+           "rglru", "rglru_step", "ssd_chunked", "ssd_step"]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -171,3 +176,175 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate_up: torch.Tensor,
     return moe_apply(x, weights, idx, w_gate_up, w_down, k=k,
                      capacity_factor=capacity_factor,
                      min_capacity=min_capacity, group_size=group_size)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv1d (mamba2 / rg-lru)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None,
+                  state: Optional[torch.Tensor] = None):
+    """x: (B, S, C); w: (C, W) depthwise; state: (B, W-1, C) trailing
+    context (zeros when None). Returns (y (B, S, C), new_state (B, W-1, C)),
+    the new state being the last W-1 positions of [state, x].
+
+    The W taps are W shifted slices of [state, x] summed in f32 and rounded
+    once to x's dtype; no (B, S, W, C) window tensor is gathered. A decode
+    step is the same call at S = 1."""
+    B, S, C = x.shape
+    W = w.shape[-1]
+    if state is None:
+        state = x.new_zeros((B, W - 1, C))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)          # (B, S+W-1, C)
+    w32 = w.float()
+    y = xp[:, :S].float() * w32[:, 0]
+    for j in range(1, W):
+        y = y + xp[:, j:j + S].float() * w32[:, j]
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype), xp[:, S:]
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma): a linear recurrence, scanned in log depth
+# ---------------------------------------------------------------------------
+
+_RGLRU_C = 8.0
+
+
+def _rglru_gates(x32: torch.Tensor, a_param, w_rg, w_ig):
+    """(a, sqrt(1 - a^2) * i * x) of the recurrence, in f32."""
+    r = torch.sigmoid(x32 @ w_rg.float())
+    i = torch.sigmoid(x32 @ w_ig.float())
+    log_a = -_RGLRU_C * F.softplus(a_param.float()) * r
+    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (i * x32)
+    return torch.exp(log_a), gated
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1):
+    """Inclusive scan of the pairs (a_t, b_t) under (a1, b1) then (a2, b2)
+    -> (a1 a2, b1 a2 + b2) along `dim`: returns (prod of a up to t, the
+    h_t of h_t = a_t h_{t-1} + b_t from h = 0). Hillis-Steele doubling:
+    ceil(log2 S) passes of whole-tensor ops (12 at S 4096). Only products
+    of a in (0, 1] are formed, so nothing overflows where a cumulative sum
+    of log a would (log a_t is about -4.4 a step at a_param 0.7)."""
+    S = a.shape[dim]
+    d = 1
+    while d < S:
+        a_hi, b_hi = a.narrow(dim, d, S - d), b.narrow(dim, d, S - d)
+        a_lo, b_lo = a.narrow(dim, 0, S - d), b.narrow(dim, 0, S - d)
+        b = torch.cat([b.narrow(dim, 0, d), b_lo * a_hi + b_hi], dim=dim)
+        a = torch.cat([a.narrow(dim, 0, d), a_lo * a_hi], dim=dim)
+        d *= 2
+    return a, b
+
+
+def rglru(x: torch.Tensor, a_param: torch.Tensor, w_rg: torch.Tensor,
+          w_ig: torch.Tensor, h0: Optional[torch.Tensor] = None):
+    """Real-Gated Linear Recurrent Unit over a sequence:
+        r_t = sigmoid(x_t @ w_rg);  i_t = sigmoid(x_t @ w_ig)
+        log a_t = -c * softplus(a_param) * r_t
+        h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+    computed in f32. x: (B, S, C); h0: (B, C) f32 or None. Returns
+    (y (B, S, C) in x's dtype, h_last (B, C) f32)."""
+    x32 = x.float()
+    a, gated = _rglru_gates(x32, a_param, w_rg, w_ig)
+    a_cum, h = _linear_scan(a, gated, dim=1)
+    if h0 is not None:
+        h = h + a_cum * h0.float()[:, None]
+    return h.to(x.dtype), h[:, -1]
+
+
+def rglru_step(x_t: torch.Tensor, a_param, w_rg, w_ig, h: torch.Tensor):
+    """One token of the recurrence. x_t: (B, C); h: (B, C) f32. Returns
+    (y (B, C) in x_t's dtype, h_new (B, C) f32)."""
+    x32 = x_t.float()
+    a, gated = _rglru_gates(x32, a_param, w_rg, w_ig)
+    h_new = a * h + gated
+    return h_new.to(x_t.dtype), h_new
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality), chunked
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
+                h0: Optional[torch.Tensor] = None):
+    """Chunked SSD, y_t = C_t . h_t with h_t = exp(A dt_t) h_{t-1} +
+    dt_t B_t x_t^T: the intra-chunk quadratic term plus a recurrence over
+    the chunk states. x: (B, S, H, P); dt: (B, S, H) softplus'd steps; A:
+    (H,) negative rates; Bm/Cm: (B, S, N) (one group); h0: (B, H, P, N) f32
+    or None. Returns (y (B, S, H, P) in x's dtype, h_last (B, H, P, N) f32).
+
+    The products are batched matmuls over (batch, chunk, head); the
+    largest intermediates are the (B, nc, H, L, L) f32 decay tensors
+    (134 MB each at S 4096, H 32, chunk 256), the (B, nc, H, L, P) values
+    and the (B, nc, H, P, N) chunk states (17 MB). The decay is masked in
+    the log domain (-inf above the diagonal) before the exp, as in the
+    reference: masking after the exp overflows first."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    nc = (S + pad) // chunk
+    xc = x.reshape(Bsz, nc, chunk, H, P).float()
+    dtc = dt.reshape(Bsz, nc, chunk, H).float()
+    Bc = Bm.reshape(Bsz, nc, chunk, N).float()
+    Cc = Cm.reshape(Bsz, nc, chunk, N).float()
+
+    dA_cs = torch.cumsum(dtc * A.float(), dim=2)            # (B,nc,L,H)
+    dA_h = dA_cs.transpose(2, 3)                            # (B,nc,H,L)
+    dx = (dtc[..., None] * xc).permute(0, 1, 3, 2, 4)       # (B,nc,H,L,P)
+
+    # intra-chunk: y[l] = sum_{m<=l} C_l.B_m exp(dA_cs[l]-dA_cs[m]) dt_m x_m
+    tril = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    seg = (dA_h[..., :, None] - dA_h[..., None, :]).masked_fill(
+        ~tril, float("-inf"))                               # (B,nc,H,L,L)
+    gate = torch.exp(seg)
+    del seg
+    gate = gate * (Cc @ Bc.transpose(-1, -2))[:, :, None]   # scores (B,nc,L,L)
+    y = gate @ dx                                           # (B,nc,H,L,P)
+    del gate
+
+    # chunk states: sum_l exp(dA_cs[last]-dA_cs[l]) dt_l x_l B_l^T
+    decay_last = torch.exp(dA_h[..., -1:] - dA_h)           # (B,nc,H,L)
+    states = (dx * decay_last[..., None]).transpose(-1, -2) @ Bc[:, :, None]
+
+    # the recurrence over the nc chunk boundaries, and the state entering
+    # each chunk
+    chunk_decay = torch.exp(dA_h[..., -1])                  # (B,nc,H)
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_in = torch.stack(h_in, dim=1)                         # (B,nc,H,P,N)
+
+    # inter-chunk: y[l] += exp(dA_cs[l]) C_l . h_in
+    y = y + (Cc[:, :, None] @ h_in.transpose(-1, -2)) * torch.exp(dA_h)[..., None]
+    y = y.permute(0, 1, 3, 2, 4).reshape(Bsz, nc * chunk, H, P)[:, :S]
+    return y.to(x.dtype), h
+
+
+def ssd_step(x_t: torch.Tensor, dt_t: torch.Tensor, A: torch.Tensor,
+             B_t: torch.Tensor, C_t: torch.Tensor, h: torch.Tensor):
+    """One token of the SSD recurrence. x_t: (B, H, P); dt_t: (B, H);
+    B_t / C_t: (B, N); h: (B, H, P, N) f32. Returns (y (B, H, P) in x_t's
+    dtype, h_new f32)."""
+    dt32 = dt_t.float()
+    a = torch.exp(dt32 * A.float()[None])                   # (B, H)
+    dBx = (dt32[..., None] * x_t.float())[..., None] \
+        * B_t.float()[:, None, None, :]                     # (B, H, P, N)
+    h_new = h * a[..., None, None] + dBx
+    y = (h_new @ C_t.float()[:, None, :, None])[..., 0]     # (B, H, P)
+    return y.to(x_t.dtype), h_new

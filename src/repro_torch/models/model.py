@@ -1,20 +1,29 @@
-"""The dense and uniform MoE model families: parameter shapes, embedding,
+"""The model families of the port: parameter shapes, embedding,
 projections, the FFN (SwiGLU or top-k MoE, by the layer's keys), the
-language-model head, the two decode steps and the speculative verify step.
+recurrent blocks, the language-model head, `prefill`, the decode steps and
+the speculative verify step.
 
-Counterpart of src/repro/models/model.py (its single-layer-stack part:
-dense, and MoE at moe_layer_freq 1). The reference scans a jitted body over
-stacked layer parameters; here the layers are a Python loop of eager
-PyTorch ops. Attention goes through `kernels.ops`, which runs the CUDA
-decode and verify kernels on the card and the plain versions on the CPU.
+Counterpart of src/repro/models/model.py for dense stacks, MoE at
+moe_layer_freq 1, ssm (Mamba2) and the recurrent hybrid (RecurrentGemma:
+(rglru, rglru, attn) triples and a tail of rglru layers). The reference
+scans a jitted body over stacked layer parameters; here the layers are a
+Python loop of eager PyTorch ops. Attention goes through `kernels.ops`,
+which runs the CUDA prefill, decode and verify kernels on the card and the
+plain versions on the CPU.
+
+Serving (`SegmentedPrefill`, the ragged decode step, speculation) takes the
+dense and MoE stacks only, as in the reference; ssm and the hybrid are
+served by `prefill` and `decode_step`.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, _expanded_pattern
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -22,25 +31,24 @@ Params = Any          # repro_torch.params.ModelParams (mapping-style access)
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Admit the families with one stack of attention layers: dense, and
-    MoE with an MoE FFN in every layer. Interleaved dense/MoE pairs, ssm,
-    the recurrent hybrid, audio and vlm are not ported."""
+    """Admit dense stacks, MoE with an MoE FFN in every layer, ssm and the
+    recurrent hybrid. Interleaved dense/MoE pairs, audio and vlm are not
+    ported."""
     if cfg.family == "dense" and not cfg.num_experts:
         return
     if cfg.family == "moe" and cfg.num_experts and cfg.moe_layer_freq == 1:
         return
+    if cfg.family in ("ssm", "hybrid"):
+        return
     raise NotImplementedError(
         f"family {cfg.family!r} (num_experts={cfg.num_experts}, "
-        f"moe_layer_freq={cfg.moe_layer_freq}) is not ported; only the "
-        "dense family and uniform MoE stacks are")
+        f"moe_layer_freq={cfg.moe_layer_freq}) is not ported; only dense, "
+        "uniform MoE, ssm and the recurrent hybrid are")
 
 
-def model_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Parameter shapes of a dense or uniform MoE model, identical to the
-    reference's."""
-    _check_ported(cfg)
+def _attn_layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    H, K, n = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    H, K = cfg.num_heads, cfg.num_kv_heads
     layer = {"ln1": (d,), "wq": (d, H * hd), "wk": (d, K * hd),
              "wv": (d, K * hd), "wo": (H * hd, d)}
     if cfg.qkv_bias:
@@ -53,16 +61,79 @@ def model_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     else:
         # gate|up as an explicit (2, F) axis, as the reference stores it
         layer.update(ln2=(d,), wi=(d, 2, cfg.d_ff), wd=(cfg.d_ff, d))
+    return layer
+
+
+def _rglru_layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    d, lw = cfg.d_model, cfg.lru_width or cfg.d_model
+    return {
+        "ln1": (d,),
+        "w_x": (d, lw), "w_gate": (d, lw),
+        "conv_w": (lw, cfg.ssm_conv_width), "conv_b": (lw,),
+        "a_param": (lw,), "w_rg": (lw, lw), "w_ig": (lw, lw),
+        "w_y": (lw, d),
+        "ln2": (d,), "wi": (d, 2, cfg.d_ff), "wd": (cfg.d_ff, d),
+    }
+
+
+def _ssm_layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    d, din, N, nh, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                        cfg.ssm_heads, cfg.ssm_conv_width)
+    return {
+        "ln": (d,),
+        "in_proj": (d, 2 * din + 2 * N + nh),
+        "conv_w": (din + 2 * N, W), "conv_b": (din + 2 * N,),
+        "A_log": (nh,), "Dp": (nh,), "dt_bias": (nh,),
+        "norm_w": (din,),
+        "out_proj": (din, d),
+    }
+
+
+def _stack(shapes: Dict[str, Tuple[int, ...]], n: int):
+    return {k: (n,) + s for k, s in shapes.items()}
+
+
+def _hybrid_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    """(#(rglru, rglru, attn) triples, #tail rglru layers) such that the
+    expanded pattern truncated to num_layers is realised exactly."""
+    pat = _expanded_pattern(cfg)
+    n_tri = len(pat) // 3
+    tail = len(pat) - 3 * n_tri
+    assert all(p == "rglru" for p in pat[3 * n_tri:]), "tail must be rglru layers"
+    return n_tri, tail
+
+
+def model_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Parameter shapes of a ported model, identical to the reference's:
+    a stacked `layers` group (dense, MoE, ssm), or for the hybrid `blocks`
+    = {r1, r2, attn} stacked over the triples and a stacked `tail`."""
+    _check_ported(cfg)
+    d = cfg.d_model
     out: Dict[str, Any] = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
     if not cfg.tie_embeddings:
         out["unembed"] = (d, cfg.vocab_size)
-    out["layers"] = {k: (n,) + s for k, s in layer.items()}
+    if cfg.family == "ssm":
+        out["layers"] = _stack(_ssm_layer_shapes(cfg), cfg.num_layers)
+    elif cfg.family == "hybrid":
+        n_tri, tail = _hybrid_counts(cfg)
+        out["blocks"] = {"r1": _stack(_rglru_layer_shapes(cfg), n_tri),
+                         "r2": _stack(_rglru_layer_shapes(cfg), n_tri),
+                         "attn": _stack(_attn_layer_shapes(cfg), n_tri)}
+        if tail:
+            out["tail"] = _stack(_rglru_layer_shapes(cfg), tail)
+    else:
+        out["layers"] = _stack(_attn_layer_shapes(cfg), cfg.num_layers)
     return out
+
+
+def _at(group, l: int) -> Dict[str, torch.Tensor]:
+    """Layer `l`'s slice of every stacked leaf of a group (views)."""
+    return {k: v[l] for k, v in group.items()}
 
 
 def layer_params(params: Params, l: int) -> Dict[str, torch.Tensor]:
     """Layer `l`'s slice of every stacked leaf (views, no copies)."""
-    return {k: v[l] for k, v in params["layers"].items()}
+    return _at(params["layers"], l)
 
 
 def embed_tokens(cfg: ModelConfig, params: Params,
@@ -102,6 +173,184 @@ def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor,
     return h.to(w.dtype) @ w
 
 
+def attn_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+               h: torch.Tensor, *, positions: torch.Tensor):
+    """Pre-norm attention over the whole sequence (causal, within
+    cfg.local_window when set) through the prefill kernel. Returns
+    (h, (k, v)), k/v (B, S, K, hd) after RoPE for the cache."""
+    x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(cfg, p, x)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = ops.prefill_attention(q, k, v, causal=True,
+                              local_window=cfg.local_window)
+    return h + o.reshape(h.shape[0], h.shape[1], -1) @ p["wo"], (k, v)
+
+
+def rglru_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                h: torch.Tensor, *, conv_state=None, h_state=None):
+    """Griffin recurrent block and its MLP: a GELU gate (JAX's default, the
+    tanh form) times the RG-LRU of the causally convolved input. Over S
+    tokens with the states from a previous call, or from zero. Returns
+    (h, (h_last f32, conv_state))."""
+    x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    xb, conv_state = L.causal_conv1d(x @ p["w_x"], p["conv_w"], p["conv_b"],
+                                     conv_state)
+    y, h_last = L.rglru(xb, p["a_param"], p["w_rg"], p["w_ig"], h_state)
+    h = h + (y * gate) @ p["w_y"]
+    return ffn_block(cfg, p, h), (h_last, conv_state)
+
+
+def _ssm_in(cfg: ModelConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
+            conv_state):
+    """Mamba2's input side: the projection split z | xBC | dt, the causal
+    conv of xBC and its SiLU, softplus'd steps and the decay rates."""
+    din, N = cfg.d_inner, cfg.ssm_state
+    proj = L.rms_norm(h, p["ln"], cfg.norm_eps) @ p["in_proj"]
+    # layout: z (din) | xBC (din + 2N, the conv input x|B|C) | dt (nh)
+    z, xBC, dt = proj.split([din, din + 2 * N, cfg.ssm_heads], dim=-1)
+    xBC, conv_state = L.causal_conv1d(xBC, p["conv_w"], p["conv_b"],
+                                      conv_state)
+    xs, Bm, Cm = F.silu(xBC).split([din, N, N], dim=-1)
+    dt = F.softplus(dt + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    return z, xs, Bm, Cm, dt, A, conv_state
+
+
+def _ssm_out(cfg: ModelConfig, p: Dict[str, torch.Tensor], h, y, xs, z):
+    """The skip through Dp, the gated RMSNorm and the output projection."""
+    y = y + xs * p["Dp"][:, None]
+    y = y.reshape(*h.shape[:2], cfg.d_inner)
+    y = L.rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    return h + y @ p["out_proj"]
+
+
+def ssm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
+              *, conv_state=None, ssm_state=None):
+    """Mamba2 block over S tokens. Returns (h, (ssm_state f32,
+    conv_state))."""
+    Bsz, S = h.shape[:2]
+    z, xs, Bm, Cm, dt, A, conv_state = _ssm_in(cfg, p, h, conv_state)
+    xs = xs.reshape(Bsz, S, cfg.ssm_heads, cfg.ssm_head_dim)
+    y, ssm_state = L.ssd_chunked(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
+                                 h0=ssm_state)
+    return _ssm_out(cfg, p, h, y, xs, z), (ssm_state, conv_state)
+
+
+# ---------------------------------------------------------------------------
+# Cache and prefill
+# ---------------------------------------------------------------------------
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
+                 dtype=torch.bfloat16) -> Dict[str, Tuple]:
+    """name -> (shape, dtype), as the reference's. The recurrent states (ssm,
+    h*) are f32 whatever `dtype`; the hybrid's k/v are a ring of
+    min(local_window or max_seq, max_seq) slots. "pos" is a Python int in
+    the port's caches."""
+    _check_ported(cfg)
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    out: Dict[str, Tuple] = {}
+    if cfg.family == "ssm":
+        din, N, nh, W = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+                         cfg.ssm_conv_width)
+        out["ssm"] = ((cfg.num_layers, batch, nh, cfg.ssm_head_dim, N),
+                      torch.float32)
+        out["conv"] = ((cfg.num_layers, batch, W - 1, din + 2 * N), dtype)
+    elif cfg.family == "hybrid":
+        n_tri, tail = _hybrid_counts(cfg)
+        lw, W = cfg.lru_width or cfg.d_model, cfg.ssm_conv_width
+        win = min(cfg.local_window or max_seq, max_seq)
+        out["k"] = ((n_tri, batch, win, K, hd), dtype)
+        out["v"] = ((n_tri, batch, win, K, hd), dtype)
+        out["h1"] = ((n_tri, batch, lw), torch.float32)
+        out["h2"] = ((n_tri, batch, lw), torch.float32)
+        out["conv1"] = ((n_tri, batch, W - 1, lw), dtype)
+        out["conv2"] = ((n_tri, batch, W - 1, lw), dtype)
+        if tail:
+            out["h_tail"] = ((tail, batch, lw), torch.float32)
+            out["conv_tail"] = ((tail, batch, W - 1, lw), dtype)
+    else:
+        out["k"] = ((cfg.num_layers, batch, max_seq, K, hd), dtype)
+        out["v"] = ((cfg.num_layers, batch, max_seq, K, hd), dtype)
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+    """Zeroed cache tensors of `cache_shapes` on `device`, and pos 0."""
+    dev = resolve_device(device)
+    cache: Dict[str, Any] = {
+        k: torch.zeros(s, dtype=d, device=dev)
+        for k, (s, d) in cache_shapes(cfg, batch, max_seq, dtype).items()}
+    cache["pos"] = 0
+    return cache
+
+
+def _last_window(k: torch.Tensor, win: int) -> torch.Tensor:
+    """The trailing `win` positions of k (B, S, ...) as a ring with position
+    p at slot p % win; a prompt of S <= win is zero-padded to win slots."""
+    S = k.shape[1]
+    if S <= win:
+        return F.pad(k, (0, 0) * (k.dim() - 2) + (0, win - S))
+    return torch.roll(k[:, S - win:], (S - win) % win, dims=1)
+
+
+def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            max_seq: int = 0, cache_dtype=torch.bfloat16
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The whole prompt batch["tokens"] (B, S) in one pass. Returns the last
+    position's logits (B, V) and the populated cache (`init_cache` layout,
+    pos = S): for ssm the SSD and conv states of every layer, for the
+    hybrid the RG-LRU and conv states and each attention layer's last
+    window of K/V as a ring, for dense and MoE stacks the K/V padded to
+    max_seq (default S). Attention runs the prefill kernel on the card;
+    serving prefills dense and MoE prompts through `SegmentedPrefill`."""
+    _check_ported(cfg)
+    dev = params.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    B, S = tokens.shape
+    max_seq = max_seq or S
+    positions = torch.arange(S, device=dev)[None, :]
+    cache = init_cache(cfg, B, max_seq, cache_dtype, dev)
+    h = embed_tokens(cfg, params, tokens)
+
+    if cfg.family == "ssm":
+        for l in range(cfg.num_layers):
+            h, (ssm_s, conv_s) = ssm_block(cfg, layer_params(params, l), h)
+            cache["ssm"][l] = ssm_s
+            cache["conv"][l] = conv_s
+    elif cfg.family == "hybrid":
+        blocks = params["blocks"]
+        win = cache["k"].shape[2]
+        for t in range(cache["k"].shape[0]):
+            for r in ("1", "2"):
+                h, (h_s, c_s) = rglru_block(cfg, _at(blocks["r" + r], t), h)
+                cache["h" + r][t] = h_s
+                cache["conv" + r][t] = c_s
+            p = _at(blocks["attn"], t)
+            h, (k, v) = attn_block(cfg, p, h, positions=positions)
+            h = ffn_block(cfg, p, h)
+            cache["k"][t] = _last_window(k, win)
+            cache["v"][t] = _last_window(v, win)
+        if "h_tail" in cache:
+            for t in range(cache["h_tail"].shape[0]):
+                h, (h_s, c_s) = rglru_block(cfg, _at(params["tail"], t), h)
+                cache["h_tail"][t] = h_s
+                cache["conv_tail"][t] = c_s
+    else:
+        for l in range(cfg.num_layers):
+            p = layer_params(params, l)
+            h, (k, v) = attn_block(cfg, p, h, positions=positions)
+            h = ffn_block(cfg, p, h)
+            cache["k"][l, :, :S] = k
+            cache["v"][l, :, :S] = v
+
+    cache["pos"] = S
+    return lm_head(cfg, params, h[:, -1:])[:, 0], cache
+
+
 def supports_ragged_decode(cfg: ModelConfig) -> bool:
     """Families whose decode cache is a dense per-layer K/V stack with a
     single position pointer (the reference's predicate, unchanged)."""
@@ -114,15 +363,21 @@ def supports_ragged_decode(cfg: ModelConfig) -> bool:
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """Dense single-stream decode. tokens: (B,) — the token generated at
-    position cache['pos']; cache: {"k", "v": (L, B, S, K, hd), "pos": int}.
+    """Single-stream decode of every ported family. tokens: (B,) — the token
+    generated at position cache['pos']; cache: the `prefill` /
+    `init_cache` layout with an int "pos".
 
     Unlike the reference, which returns an updated copy of the cache, the
-    new K/V are written into cache["k"]/cache["v"] IN PLACE at `pos`; the
-    returned dict shares those tensors and carries pos + 1. Attention is
-    the decode kernel over keys [0, pos] (kv_len = pos + 1).
-    Returns (logits (B, V), cache)."""
+    step writes the cache's tensors IN PLACE (the new K/V at `pos`, or at
+    ring slot pos % win for the hybrid; the recurrent and conv states of
+    ssm and the hybrid); the returned dict shares them and carries pos + 1.
+    Dense attention is the decode kernel over keys [0, pos] (kv_len =
+    pos + 1). Returns (logits (B, V), cache)."""
     _check_ported(cfg)
+    if cfg.family == "ssm":
+        return _decode_ssm(params, cfg, tokens, cache)
+    if cfg.family == "hybrid":
+        return _decode_hybrid(params, cfg, tokens, cache)
     pos = int(cache["pos"])
     B = tokens.shape[0]
     dev = tokens.device
@@ -141,6 +396,87 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         o = ops.decode_attention(q[:, 0], k_c[l], v_c[l], kv_len)
         h = h + o.reshape(B, 1, -1) @ p["wo"]
         h = ffn_block(cfg, p, h)
+    logits = lm_head(cfg, params, h)
+    return logits[:, 0], dict(cache, pos=pos + 1)
+
+
+def _decode_ssm(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One Mamba2 token per row: the conv over [state, token] (the same
+    `causal_conv1d` at S = 1) and one SSD step; both states updated in
+    place."""
+    B = tokens.shape[0]
+    h = embed_tokens(cfg, params, tokens[:, None])          # (B, 1, D)
+    for l in range(cfg.num_layers):
+        p = layer_params(params, l)
+        conv_s, ssm_s = cache["conv"][l], cache["ssm"][l]
+        z, xs, Bm, Cm, dt, A, new_conv = _ssm_in(cfg, p, h, conv_s)
+        xs = xs.reshape(B, cfg.ssm_heads, cfg.ssm_head_dim)
+        y, new_ssm = L.ssd_step(xs, dt[:, 0], A, Bm[:, 0], Cm[:, 0], ssm_s)
+        h = _ssm_out(cfg, p, h, y, xs, z)
+        conv_s.copy_(new_conv)
+        ssm_s.copy_(new_ssm)
+    logits = lm_head(cfg, params, h)
+    return logits[:, 0], dict(cache, pos=int(cache["pos"]) + 1)
+
+
+def _rglru_step_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                      h: torch.Tensor, h_s: torch.Tensor,
+                      conv_s: torch.Tensor) -> torch.Tensor:
+    """One token through a Griffin block and its MLP: `rglru_block` at
+    S = 1 from the cached states (the scan of one step is the recurrence's
+    step), which it then writes into h_s and conv_s in place."""
+    h, (new_h, new_conv) = rglru_block(cfg, p, h, conv_state=conv_s,
+                                       h_state=h_s)
+    h_s.copy_(new_h)
+    conv_s.copy_(new_conv)
+    return h
+
+
+def _decode_hybrid(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One RecurrentGemma token per row. The local attention writes the new
+    K/V into ring slot pos % win in place and runs the decode kernel over
+    the ring with kv_len = min(pos + 1, win) on every row.
+
+    That is the reference's key set (`naive_attention` over the ring with
+    k_positions and the window, src/repro/models/model.py `_decode_hybrid`):
+    the reference masks unwritten slots by k_pos >= 0; for pos < win the
+    written slots are exactly 0..pos, which is what kv_len = pos + 1 takes
+    (the decode kernel puts the query at kv_len - 1 and sees keys
+    [0, kv_len)); for pos >= win every slot holds one of the last win
+    positions, all inside the window, and kv_len = win takes them all.
+    Attention is order-free over its keys, so the ring's rotation changes
+    only the order of the sums (hence a tolerance, not bit-equality)."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    pos = int(cache["pos"])
+    k_c, v_c = cache["k"], cache["v"]
+    win = k_c.shape[2]
+    rp = torch.full((1, 1), pos, dtype=torch.int64, device=dev)
+    kv_len = torch.full((B,), min(pos + 1, win), dtype=torch.int32,
+                        device=dev)
+    blocks = params["blocks"]
+    h = embed_tokens(cfg, params, tokens[:, None])          # (B, 1, D)
+    for t in range(k_c.shape[0]):
+        h = _rglru_step_block(cfg, _at(blocks["r1"], t), h, cache["h1"][t],
+                              cache["conv1"][t])
+        h = _rglru_step_block(cfg, _at(blocks["r2"], t), h, cache["h2"][t],
+                              cache["conv2"][t])
+        p = _at(blocks["attn"], t)
+        x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(cfg, p, x)
+        q = L.apply_rope(q, rp, cfg.rope_theta)
+        k = L.apply_rope(k, rp, cfg.rope_theta)
+        k_c[t, :, pos % win] = k[:, 0].to(k_c.dtype)
+        v_c[t, :, pos % win] = v[:, 0].to(v_c.dtype)
+        o = ops.decode_attention(q[:, 0], k_c[t], v_c[t], kv_len)
+        h = h + o.reshape(B, 1, -1) @ p["wo"]
+        h = ffn_block(cfg, p, h)
+    if "h_tail" in cache:
+        for t in range(cache["h_tail"].shape[0]):
+            h = _rglru_step_block(cfg, _at(params["tail"], t), h,
+                                  cache["h_tail"][t], cache["conv_tail"][t])
     logits = lm_head(cfg, params, h)
     return logits[:, 0], dict(cache, pos=pos + 1)
 

@@ -44,9 +44,13 @@ MOE_OPS = ("qkv_proj", "attn", "o_proj", "gate", "experts")
 
 
 def op_names(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The operator set of a ported family; raises for the others
-    (interleaved MoE pairs among them, as the reference does)."""
+    """The operator set of a dense or uniform MoE stack; raises for the
+    other families (interleaved MoE pairs, and ssm and the recurrent hybrid,
+    which the reference's segmented executor does not wire either)."""
     _check_ported(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"segmented executor: family {cfg.family!r} not wired")
     return MOE_OPS if cfg.num_experts else DENSE_OPS
 
 

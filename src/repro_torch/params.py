@@ -2,11 +2,13 @@
 `init_params` pytree or drawn from a seeded `torch.Generator`.
 
 The module keeps the reference's key names and layout: ``embed``,
-``final_norm``, ``unembed`` and ``layers.{ln1, wq, wk, wv, wo, ln2, wi, wd}``
-(and ``router`` in an MoE stack), each layer leaf stacked with a leading L
-axis, so ``params["layers"]["wq"]`` reads as ``params["layers"]["wq"]``
-does in src/repro/models/model.py. The parameters are frozen: serving never
-builds an autograd graph.
+``final_norm``, ``unembed`` and a stacked ``layers`` group (``{ln1, wq, wk,
+wv, wo, ln2, wi, wd}``, ``router`` in an MoE stack, the Mamba2 leaves for
+ssm), or for the recurrent hybrid the nested ``blocks.{r1, r2, attn}`` and
+``tail`` groups, each leaf stacked with a leading layer axis, so
+``params["blocks"]["r1"]["w_x"]`` reads as it does in
+src/repro/models/model.py. The parameters are frozen: serving never builds
+an autograd graph.
 """
 from __future__ import annotations
 
@@ -26,22 +28,24 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _group(tree: Mapping[str, Any]) -> nn.Module:
+    """A group of leaves as an `nn.ParameterDict`, a group of groups as an
+    `nn.ModuleDict` of them."""
+    if any(isinstance(v, Mapping) for v in tree.values()):
+        return nn.ModuleDict({k: _group(v) for k, v in tree.items()})
+    return nn.ParameterDict({k: _frozen(t) for k, t in tree.items()})
+
+
 class ModelParams(nn.Module):
-    """Stacked parameters of one model of a ported family (dense, uniform
-    MoE); `params[key]` mirrors the reference pytree's dict access."""
+    """Stacked parameters of one model of a ported family; `params[key]`
+    (and `params[group][sub][key]`) mirrors the reference pytree's dict
+    access."""
 
     def __init__(self, tree: Mapping[str, Any]):
         super().__init__()
         for key, val in tree.items():
-            if key == "layers":
-                self.layers = nn.ParameterDict(
-                    {k: _frozen(t) for k, t in val.items()})
-            elif isinstance(val, Mapping):
-                raise NotImplementedError(
-                    f"parameter group {key!r}: only families with one "
-                    "stacked `layers` group (dense, uniform MoE) are ported")
-            else:
-                setattr(self, key, _frozen(val))
+            setattr(self, key, _group(val) if isinstance(val, Mapping)
+                    else _frozen(val))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -81,14 +85,29 @@ def _fan_in(shape) -> int:
     return shape[-1]
 
 
+def _fix_recurrent(group: dict) -> None:
+    """The reference's family inits: Mamba2's A_log = log(1..nh), dt_bias
+    0.5 and Dp 1; RG-LRU's a_param 0.7."""
+    if "A_log" in group:
+        a = group["A_log"]
+        nh = a.shape[-1]
+        a.copy_(torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                       device=a.device)).expand(a.shape))
+        group["dt_bias"].fill_(0.5)
+        group["Dp"].fill_(1.0)
+    if "a_param" in group:
+        group["a_param"].fill_(0.7)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device="cuda", dtype: torch.dtype = torch.float32
                 ) -> ModelParams:
     """Random weights with the reference's shapes and fan-in scaling
     (src/repro/models/model.py `init_params`): N(0, 1/fan_in) matrices and
-    zero vectors (norm weights scale by 1 + w). Drawn in f32 from
-    `generator`, which must live on `device`; stacked leaves are drawn one
-    layer at a time so a full-width model needs no f32 copy of itself."""
+    zero vectors (norm weights scale by 1 + w), then its ssm and RG-LRU
+    inits. Drawn in f32 from `generator`, which must live on `device`;
+    stacked leaves are drawn one layer at a time so a full-width model needs
+    no f32 copy of itself."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device} but device {dev}")
@@ -104,7 +123,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                                    device=dev, dtype=torch.float32) * scale)
         return out
 
-    shapes = model_shapes(cfg)
-    tree = {k: ({kk: draw(s) for kk, s in v.items()} if isinstance(v, dict)
-                else draw(v)) for k, v in shapes.items()}
-    return ModelParams(tree)
+    def make(shapes):
+        if isinstance(shapes, dict):
+            group = {k: make(s) for k, s in shapes.items()}
+            _fix_recurrent(group)
+            return group
+        return draw(shapes)
+
+    return ModelParams(make(model_shapes(cfg)))

@@ -45,13 +45,17 @@ PREFILL_CASES = [
     (2, 48, 64, 4, 2, 32, 0, 48, True, 0),
     (1, 40, 96, 4, 2, 16, 56, None, True, 0),
     (1, 16, 64, 4, 2, 32, 40, 48, True, 4),       # rows with no visible key
+    # RecurrentGemma's head_dim 256, one KV head: a window from position 0,
+    # and a resumed chunk at q_offset 160 whose window binds
+    (1, 256, 256, 4, 1, 256, 0, None, True, 64),
+    (1, 40, 300, 4, 1, 256, 160, 200, True, 64),
 ]
 
 # the tensor-core body of the prefill kernel (bf16, head_dim 64/128): the
 # cases above at those head dims, and B 2 with two query tiles of 128, Sq
 # and T off the 64/128 grids, kv_len < T, a window with and without the
 # causal mask, rows with no visible key
-TC_PREFILL_CASES = [c for c in PREFILL_CASES if c[5] in (64, 128)] + [
+TC_PREFILL_CASES = [c for c in PREFILL_CASES if c[5] in (64, 128, 256)] + [
     (1, 16, 64, 4, 2, 64, 40, 48, True, 4),       # rows with no visible key
     (2, 200, 700, 8, 2, 128, 450, 650, True, 0),
     (1, 130, 300, 4, 1, 128, 0, None, False, 96),
@@ -65,6 +69,7 @@ DECODE_CASES = [
     (4, 128, 4, 1, 128, [77, 1, 128, 5]),
     (4, 256, 4, 2, 32, [1, 77, 256, 130]),
     (3, 64, 4, 2, 16, [0, 1, 64]),                # a row of length 0 -> 0
+    (4, 300, 16, 1, 256, [1, 70, 300, 33]),       # hd 256 MQA ring decode
 ]
 
 VERIFY_CASES = [
@@ -77,6 +82,7 @@ VERIFY_CASES = [
     (4, 8, 129, 16, 2, 64, [0, 1, 64, 121]),
     (2, 5, 45, 4, 2, 32, [0, 40]),
     (1, 5, 33, 4, 2, 16, [28]),
+    (2, 3, 96, 16, 1, 256, [0, 93]),
 ]
 
 
@@ -92,6 +98,7 @@ SPLIT_CASES = [
     (2, 3, 260, 8, 4, 32, [1, 257]),
     (2, 2, 200, 4, 2, 16, [0, 129]),
     (1, 5, 4096, 32, 8, 128, [4096]),
+    (2, 3, 200, 16, 1, 256, [31, 33]),            # 32-key splits at hd 256
 ]
 
 
@@ -127,8 +134,8 @@ def test_flash_prefill_matches_plain(card, case, dtype):
 
 @pytest.mark.parametrize("case", TC_PREFILL_CASES)
 def test_flash_prefill_tensor_core_body(card, case):
-    """bf16 at head_dim 64/128 runs the tensor-core body (its own counter)
-    and stays inside the bf16 limit of the plain version."""
+    """bf16 at head_dim 64/128/256 runs a tensor-core body (its own
+    counter) and stays inside the bf16 limit of the plain version."""
     B, Sq, T, H, K, hd, qoff, kv_len, causal, window = case
     gen = torch.Generator(device=card).manual_seed(4)
     q = _randn((B, Sq, H, hd), torch.bfloat16, gen, card)
@@ -168,6 +175,24 @@ def test_tensor_core_body_on_a_cache_layer_view(card, hd):
         q, kc[1, :, :kv_len], vc[1, :, :kv_len], q_offset=qoff)
     torch.testing.assert_close(got.float(), want.float(),
                                **TOL[torch.bfloat16])
+
+
+def test_head_dim_256_prefill_runs_a_tensor_core_body(card):
+    """bf16 at head_dim 256 runs its tensor-core body (mma.sync), as
+    TENSOR_CORE_HEAD_DIMS declares, and f32 the CUDA-core body."""
+    from repro_torch.kernels.flash_prefill import tensor_core_body
+    gen = torch.Generator(device=card).manual_seed(5)
+    q = _randn((1, 64, 16, 256), torch.bfloat16, gen, card)
+    k = _randn((1, 64, 1, 256), torch.bfloat16, gen, card)
+    ops.reset_counts()
+    flash_prefill_attention(q, k, k, 0, None, local_window=32)
+    flash_prefill_attention(q.float(), k.float(), k.float(), 0, None,
+                            local_window=32)
+    torch.cuda.synchronize()
+    assert tensor_core_body(torch.bfloat16, 256)
+    assert not tensor_core_body(torch.float32, 256)
+    assert ops.counts()["flash_prefill_attention"] == 2
+    assert ops.counts()["flash_prefill_wgmma"] == 1
 
 
 def test_tensor_core_body_is_deterministic(card):
@@ -755,3 +780,42 @@ def test_moe_suspend_resume_on_the_card_is_bit_exact(card, op, dtype):
     got = ex.run_all(task)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# --- the recurrent families on the card ---------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "recurrentgemma_9b"])
+def test_recurrent_prefill_and_decode_on_the_card_match_the_cpu(card, arch):
+    """The tiny Mamba2 and RecurrentGemma configs in f32: `prefill` logits
+    and 8 `decode_step` logits on the card against the CPU at 2e-4 (the
+    port's model tolerance); the tiny hybrid's window of 32 wraps during the
+    decode (positions 28 to 35). The hybrid's attention runs the two
+    kernels alone."""
+    import copy
+
+    from repro_torch.configs.base import get_tiny_config
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.params import init_params
+
+    cfg = get_tiny_config(arch)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(card)
+    S = 28
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S + 8))
+    out = {}
+    ops.reset_counts()
+    for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        t = torch.from_numpy(toks).to(params.device)
+        logits, cache = prefill(params, cfg, {"tokens": t[:, :S]},
+                                max_seq=S + 8, cache_dtype=torch.float32)
+        steps = [logits]
+        for i in range(8):
+            logits, cache = decode_step(params, cfg, t[:, S + i], cache)
+            steps.append(logits)
+        out[where] = torch.stack(steps).cpu()
+    launched = ops.counts()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=2e-4, atol=2e-4)
+    if cfg.family == "hybrid":
+        assert launched["flash_prefill_attention"] == 1
+        assert launched["flash_decode_attention"] == 8

@@ -19,7 +19,8 @@ COPIED = [
     "core/metrics.py", "core/dispatch.py", "core/prefixcache.py",
     "core/tieredcache.py", "core/faults.py",
     "configs/base.py", "configs/llama3_8b.py", "configs/qwen3_30b_a3b.py",
-    "configs/granite_moe_3b.py",
+    "configs/granite_moe_3b.py", "configs/mamba2_370m.py",
+    "configs/recurrentgemma_9b.py",
 ]
 
 _IMPORT_ALL = """

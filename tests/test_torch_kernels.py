@@ -31,6 +31,10 @@ PREFILL_CASES = [
     # head dims of the tiny configs the runtime tests serve
     (2, 48, 48, 4, 2, 32, 0, True, 0),
     (1, 40, 96, 4, 2, 16, 56, True, 0),
+    # RecurrentGemma's head_dim 256 with one KV head: a window from
+    # position 0, and a resumed chunk at q_offset 160 whose window binds
+    (1, 96, 96, 4, 1, 256, 0, True, 32),
+    (1, 40, 200, 4, 1, 256, 160, True, 64),
 ]
 
 DECODE_CASES = [
@@ -39,6 +43,7 @@ DECODE_CASES = [
     (2, 512, 8, 2, 64, 300),
     (4, 128, 4, 1, 128, 77),
     (1, 1024, 16, 8, 64, 1000),
+    (2, 160, 16, 1, 256, 97),             # RecurrentGemma's MQA at hd 256
 ]
 
 VERIFY_CASES = [
@@ -47,6 +52,7 @@ VERIFY_CASES = [
     (3, 5, 300, 8, 2, 64, [0, 37, 295]),
     (2, 1, 128, 4, 4, 32, [5, 127]),
     (2, 3, 96, 8, 1, 16, [0, 93]),
+    (2, 3, 96, 4, 1, 256, [0, 93]),
 ]
 
 
@@ -128,8 +134,9 @@ def test_prefill_empty_rows_are_zero():
 
 def tensor_core_emulation(q, k, v, q_offset, kv_len, causal, window, terms,
                           block_q=128, block_k=128):
-    """The arithmetic the prefill kernel's tensor-core body commits to
-    (`csrc/flash_prefill.cu`, `prefill_tc_kernel`), in plain PyTorch: bf16
+    """The arithmetic the prefill kernel's tensor-core bodies commit to
+    (`csrc/flash_prefill.cu`, `prefill_tc_kernel`, and `prefill_mma_kernel`
+    with block_q 64 and block_k 32), in plain PyTorch: bf16
     q/k/v, scores summed in f32 and scaled by log2(e)/sqrt(hd), an online
     softmax over block_k-key tiles from the first tile the query block's
     loop visits (keys past kv_len read as zeros), exp2, p zeroed under the
@@ -189,12 +196,15 @@ def tensor_core_emulation(q, k, v, q_offset, kv_len, causal, window, terms,
 def _against_pallas_bf16(case, terms):
     """Worst element of the emulation against the JAX Pallas kernel
     (interpret mode, f32, on the same bf16-rounded inputs), as a multiple
-    of the port's bf16 limit."""
+    of the port's bf16 limit. At head_dim 256 the body (mma.sync) takes
+    64-query blocks and 32-key tiles."""
     B, Sq, T, H, K, hd, qoff, causal, window = case
     arrays = [a.astype(jnp.bfloat16).astype(np.float32)
               for a in qkv(9, (B, Sq, H, hd), (B, T, K, hd))]
     (tq, tk, tv), (jq, jk, jv) = both(*arrays)
-    got = tensor_core_emulation(tq, tk, tv, qoff, T, causal, window, terms)
+    tiles = dict(block_q=64, block_k=32) if hd == 256 else {}
+    got = tensor_core_emulation(tq, tk, tv, qoff, T, causal, window, terms,
+                                **tiles)
     want = torch.from_numpy(np.array(jops.prefill_attention(
         jq, jk, jv, q_offset=qoff, causal=causal, local_window=window,
         impl="pallas_interpret", block_q=64, block_k=128)))
@@ -202,7 +212,7 @@ def _against_pallas_bf16(case, terms):
             / (BF16_ATOL + BF16_RTOL * want.abs())).max().item()
 
 
-TENSOR_CORE_CASES = [c for c in PREFILL_CASES if c[5] in (64, 128)]
+TENSOR_CORE_CASES = [c for c in PREFILL_CASES if c[5] in (64, 128, 256)]
 
 
 @pytest.mark.parametrize("case", TENSOR_CORE_CASES)
@@ -247,6 +257,22 @@ def test_decode_ragged_per_row_kv_len():
     # the kv_len = 1 row attends to key 0 alone: its output is v[0]
     np.testing.assert_allclose(
         got[0], np.repeat(tv.numpy()[0, 0], H // K, axis=0), **F32)
+
+
+def test_decode_ragged_head_dim_256():
+    """RecurrentGemma's ring decode: 16 query heads on one KV head of 256,
+    per-row kv_len from 1 to the whole ring."""
+    B, T, H, K, hd = 4, 160, 16, 1, 256
+    lens = np.asarray([1, 70, 160, 33], np.int32)
+    (tq, tk, tv), (jq, jk, jv) = both(*qkv(12, (B, H, hd), (B, T, K, hd)))
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens)).numpy()
+    pallas = jops.decode_attention(jq, jk, jv, jnp.asarray(lens),
+                                   impl="pallas_interpret", block_k=128)
+    oracle = jref.decode_attention_ref(jq, jk, jv, kv_len=jnp.asarray(lens))
+    np.testing.assert_allclose(got, np.asarray(pallas), **F32)
+    np.testing.assert_allclose(got, np.asarray(oracle), **F32)
+    np.testing.assert_allclose(got[0], np.repeat(tv.numpy()[0, 0], H, axis=0),
+                               **F32)
 
 
 @pytest.mark.parametrize("case", VERIFY_CASES)
@@ -324,8 +350,13 @@ def test_counts_lose_nothing_across_threads():
 
 
 # the decode/verify body's fixed split and per-warp key tile
-# (`csrc/decode_attn.cu`: SPLIT, WKEYS)
-SPLIT_KEYS, WARP_KEYS = 128, 32
+# (`csrc/decode_attn.cu`: split_keys<HD>, WKEYS)
+WARP_KEYS = 32
+
+
+def split_of(hd):
+    """Keys per split block: four warps up to head_dim 128, one at 256."""
+    return 32 if hd > 128 else 128
 
 
 def _merge(ms, ls, accs):
@@ -346,7 +377,8 @@ def split_kv_emulation(q, k, v, kv_len, shift, terms):
     (`csrc/decode_attn.cu`), in plain PyTorch: q (B, S, H, hd), query s of
     row b at position kv_len[b] + shift + s seeing keys [0, min(that + 1,
     T)); bf16 q/k/v, scores summed in f32 and scaled by log2(e)/sqrt(hd);
-    each 32-key warp tile of each 128-key split takes its own max, exp2 and
+    each 32-key warp tile of each split (128 keys, 32 at head_dim 256)
+    takes its own max, exp2 and
     l from the f32 p; P V with P as two bf16 terms (P_hi = p cut to its top
     16 bits, P_lo = bf16(p - P_hi)) or, with `terms` 1, as one; the warps of
     a split merged in order, then the splits in ascending order, each
@@ -363,9 +395,9 @@ def split_kv_emulation(q, k, v, kv_len, shift, terms):
         for s in range(S):
             end = max(0, min(int(kv_len[b]) + shift + s + 1, T))
             splits = []
-            for lo in range(0, end, SPLIT_KEYS):
+            for lo in range(0, end, split_of(hd)):
                 warps = []
-                for w0 in range(lo, min(lo + SPLIT_KEYS, end), WARP_KEYS):
+                for w0 in range(lo, min(lo + split_of(hd), end), WARP_KEYS):
                     w1 = min(w0 + WARP_KEYS, end)
                     x = torch.einsum("hd,thd->ht", q[b, s], k[b, w0:w1]) * scale
                     m = x.amax(-1, keepdim=True)
