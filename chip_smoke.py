@@ -149,16 +149,43 @@ Phases; the first failure exits non-zero and prints no result:
     the body `TENSOR_CORE_HEAD_DIMS` declares and the decode kernel 12
     times per step, no plain version. Prints prefill and median step times
     and a profiler breakdown of one 4096-token prefill and one step of each.
+13. the remaining families at published width in bf16 with random
+    weights, one model at a time: Whisper-large-v3 whole (32 + 32 layers;
+    its LayerNorm weights redrawn as 1 + 0.1 N(0,1) and biases as
+    0.1 N(0,1), since the reference's init makes it output zero): `prefill`
+    over 1500 N(0,1) stub frames, 16 greedy `decode_step`s from a BOS
+    token and `forward` over the 17 tokens; step 0 within 4 * 2^-7 *
+    max|logit| of forward's position 0 (its logits' std must be at least
+    1e-3), layer 0's attention calls of both paths kernel against plain.
+    InternVL2-76B at 8 of its 80 layers: a 4096-token prompt whose first
+    256 positions are patch embeddings, in 512-token chunks through
+    `SegmentedPrefill`, suspended at every operator boundary of chunk 3
+    and resumed `torch.equal`, within the bound of the fused `prefill`,
+    `torch.equal` when only the tokens under the patches change; then 16
+    ragged decode steps at B 4. Llama4-Maverick at one (dense, MoE) pair:
+    a 2048-token `prefill` and 16 teacher-forced steps, each held to a
+    `prefill` of the same tokens where that prefill kept the last token's
+    expert pair (a one-token step is never over capacity). Llama3.2-1B,
+    Qwen2-1.5B, Qwen2.5-3B and Minitron-4B whole: a 1024-token `prefill`
+    and 8 steps, each held to a `prefill`. Each path must launch both
+    kernels (every prefill launch on a tensor-core body) and no plain
+    version; profiler breakdowns of a Whisper and a Llama4 step (the
+    expert `bmm` against its 32.2 GB bytes bound). Phase 2 also times
+    Whisper's `enc1500 nc hd64 K20` (non-causal) and `xattn B1 T1500 hd64
+    K20`, InternVL2's `chunk512@3584 H64 K8` and `B4ragged H40 K8`
+    (Llama4's heads); phase 3 also runs the tiny Whisper, InternVL2 and
+    Llama4 configs card vs CPU (2e-4).
 
 The line before the last holds the kernels' record: each kernel's launches
 by path (each path's counters zeroed just before it ran) and their sum, the
 times at Llama3-8B's main-path shape and, under "k4", at Qwen3-30B-A3B's,
-under "hd256" at RecurrentGemma-9B's; the last line is
-`{"ok": true, "device": {...}}`.
+under "hd256" at RecurrentGemma-9B's, under "phase13" at phase 13's; the
+last line is `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import gc
 import json
@@ -248,6 +275,22 @@ K4 = " K4"                                # the Qwen3-30B-A3B rows' suffix
 HD256 = dict(H=16, K=1, hd=256, window=2048)
 MAIN_PREFILL_HD256, MAIN_DECODE_HD256 = \
     "win2048@4096 hd256 K1", "B1ring2048 hd256"
+# phase 13's kernel shapes (bf16), timed in phase 2: Whisper's encoder
+# (non-causal, one query head per KV head, Sq = T = 1500 off the 128-row
+# tile grid) and its cross-attention decode over 1500 keys, InternVL2's
+# chunk (H 64, K 8) and a ragged decode at Llama4-Maverick's H 40, K 8
+PHASE13_PREFILL = [
+    # label, Sq, T, H, K, hd, q_offset, kv_len, causal
+    ("enc1500 nc hd64 K20", 1500, 1500, 20, 20, 64, 0, 1500, False),
+    ("chunk512@3584 H64 K8", 512, 4096, 64, 8, 128, 3584, 4096, True),
+]
+PHASE13_DECODE = [
+    # label, per-row kv_len, T, H, K, hd
+    ("xattn B1 T1500 hd64 K20", [1500], 1500, 20, 20, 64),
+    ("B4ragged H40 K8", [1, 1000, 2600, 4096], 4096, 40, 8, 128),
+]
+PHASE13_ROWS = {"flash_prefill_attention": [r[0] for r in PHASE13_PREFILL],
+                "flash_decode_attention": [r[0] for r in PHASE13_DECODE]}
 # teacher-forced decode checks of phase 12: the steps checked per prompt
 RECURRENT_CHECKS = {4096: (0, 1, 7, 31), 2040: (0, 7, 8, 15)}
 
@@ -308,7 +351,8 @@ def breakdown(torch, label, fn, top: int = 6, cpu_ops=()) -> None:
     share of the wall time, the kernels that took the most device time, and
     the device time of the kernels launched under each operator of
     `cpu_ops` (such as "aten::bmm") with its share. Prints "not measured"
-    where the profiler recorded no device time."""
+    where the profiler recorded no device time. Returns {operator of
+    `cpu_ops`: device ms under it}, empty where nothing was measured."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -333,7 +377,7 @@ def breakdown(torch, label, fn, top: int = 6, cpu_ops=()) -> None:
     print(f"{label}: wall {wall_us / 1e3:.2f} ms under the profiler")
     if busy <= 0:
         print("  device time not measured: the profiler recorded no kernel")
-        return
+        return {}
     print(f"  kernels {busy / 1e3:.2f} ms, device idle share "
           f"{max(0.0, 1 - busy / wall_us):.3f}")
     for us, n, key in sorted(kern, reverse=True)[:top]:
@@ -343,6 +387,7 @@ def breakdown(torch, label, fn, top: int = 6, cpu_ops=()) -> None:
         us, n = under.get(key, (0.0, 0))
         print(f"  under {key}: {us / 1e3:.2f} ms of kernels, "
               f"{100 * us / busy:.1f}% of the device time, x{n}")
+    return {key: under.get(key, (0.0, 0))[0] / 1e3 for key in cpu_ops}
 
 
 BODIES = ("prefill_tc_kernel", "prefill_mma_kernel", "prefill_kernel",
@@ -435,11 +480,17 @@ def ptxas_report(log: str, smem_bytes) -> None:
                   f"{smem_bytes(body, dtype, hd)}")
 
 
-def prefill_work(B, Sq, H, K, hd, q_offset, kv_len, es, window=0):
+def prefill_work(B, Sq, H, K, hd, q_offset, kv_len, es, window=0,
+                 causal=True):
     """Operations and bytes a causal chunk needs: 4*hd per visible (query,
     key) pair and head; q and o once, and of k and v once each key that
     some query sees (below the last visible one, and inside the first
-    query's window)."""
+    query's window). Without the causal mask every query sees all kv_len
+    keys."""
+    if not causal:
+        return (4.0 * hd * H * B * Sq * kv_len,
+                es * B * (2 * Sq * H * hd + 2 * kv_len * K * hd))
+
     def first(i):
         return max(0, q_offset + i - window + 1) if window else 0
     pairs = sum(max(0, min(kv_len, q_offset + i + 1) - first(i))
@@ -516,8 +567,9 @@ def adversarial_drafter(trajectories, vocab):
 
 def recorded_run(port, *args, **kw):
     """`run_decode` with the batched steps' logits recorded: returns the
-    outputs and, per step, (kv_lens, logits (B, S, V)). The step functions
-    are wrapped in the decode instance's module for this run only."""
+    instance, the outputs and, per step, (kv_lens, logits (B, S, V)). The
+    step functions are wrapped in the decode instance's module for this run
+    only."""
     calls = []
     saved = port.decode_step_ragged, port.decode_verify_ragged
 
@@ -531,10 +583,10 @@ def recorded_run(port, *args, **kw):
 
     port.decode_step_ragged, port.decode_verify_ragged = map(wrap, saved)
     try:
-        _, out = run_decode(port, *args, **kw)
+        inst, out = run_decode(port, *args, **kw)
     finally:
         port.decode_step_ragged, port.decode_verify_ragged = saved
-    return out, calls
+    return inst, out, calls
 
 
 def logits_of(calls, pos, t):
@@ -602,9 +654,9 @@ def spec_phase(torch, np, port, ops, dep, cfg):
         # near-tie check: rerun both with the steps' logits recorded (the
         # schedules are deterministic) and compare, at the first differing
         # token, the plain step's logits with the verify column's
-        plain_again, plain_calls = recorded_run(
+        _, plain_again, plain_calls = recorded_run(
             port, dep.params, cfg, handoffs, n_tok)
-        out_again, spec_calls = recorded_run(
+        _, out_again, spec_calls = recorded_run(
             port, dep.params, cfg, handoffs, n_tok, **kw)
         same = plain_again == plain and out_again == out
         print(f"  {label}: streams {differ} differ from plain; recorded "
@@ -1308,47 +1360,72 @@ def moe_phase(torch, np, ops, kcounts, build_deployment):
     return counts
 
 
-def tiny_recurrent_card_vs_cpu(torch, np, ops, arch) -> None:
-    """Phase 3's recurrent families: the tiny config in f32, `prefill`
-    logits and 8 `decode_step` logits on the card against the CPU (2e-4);
-    the tiny hybrid's window of 32 wraps during the decode (positions 28 to
-    35), and its attention must run the two kernels alone."""
+def tiny_family_card_vs_cpu(torch, np, ops, arch) -> None:
+    """Phase 3's ssm, hybrid, audio, vlm and pairs: the tiny config in f32
+    (Whisper's norms and biases redrawn), `forward` logits, `prefill`
+    logits and 8 `decode_step` logits on the card against the CPU (2e-4).
+    No plain attention version may run on the card: ssm launches no
+    attention, the hybrid each kernel once a triple per call (its window of
+    32 wraps during the decode, positions 28 to 35), the others both
+    kernels."""
     from repro_torch.configs.base import get_tiny_config
-    from repro_torch.models.model import decode_step, prefill
-    from repro_torch.params import init_params
+    from repro_torch.models.model import (_hybrid_counts, decode_step,
+                                          forward, prefill)
+    from repro_torch.params import init_params, redraw_norms
     cfg = get_tiny_config(arch)
     p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    if cfg.family == "audio":
+        redraw_norms(p_cpu, 1)
     p_gpu = copy.deepcopy(p_cpu).to("cuda")
-    S = 28
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S + 8))
+    rng = np.random.default_rng(0)
+    S, n = 28, 8
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, S + n))}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (2, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     out = {}
     for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
         ops.reset_counts()
-        t = torch.from_numpy(toks).to(params.device)
-        logits, cache = prefill(params, cfg, {"tokens": t[:, :S]},
-                                max_seq=S + 8, cache_dtype=torch.float32)
+        b = {k: torch.from_numpy(v).to(params.device)
+             for k, v in batch.items()}
+        fw = forward(params, cfg, b)
+        logits, cache = prefill(params, cfg,
+                                dict(b, tokens=b["tokens"][:, :S]),
+                                max_seq=S + n, cache_dtype=torch.float32)
         steps = [logits]
-        for i in range(8):
-            logits, cache = decode_step(params, cfg, t[:, S + i], cache)
+        for i in range(n):
+            logits, cache = decode_step(params, cfg, b["tokens"][:, S + i],
+                                        cache)
             steps.append(logits)
-        out[where] = torch.stack(steps).cpu()
+        out[where] = [fw.cpu(), torch.stack(steps).cpu()]
     counts = ops.counts()
-    err = (out["cpu"] - out["cuda"]).abs().max().item()
-    print(f"{cfg.name}: prefill + 8 decode steps, card vs cpu max_abs_err "
-          f"{err:.3e} tol 2e-4; launches {json.dumps(counts)}", flush=True)
+    err = max((a - b).abs().max().item()
+              for a, b in zip(out["cpu"], out["cuda"]))
+    print(f"{cfg.name}: forward, prefill + {n} decode steps, card vs cpu "
+          f"max_abs_err {err:.3e} tol 2e-4; launches {json.dumps(counts)}",
+          flush=True)
     if not err <= 2e-4:
         fail(f"tiny {cfg.name}: card and CPU differ by {err}")
-    if cfg.family == "hybrid" and (
-            counts["flash_prefill_attention"] != 1 or
-            counts["flash_decode_attention"] != 8 or
-            counts["chunked_prefill_attention_ref"] or
-            counts["decode_attention_ref"]):
-        fail(f"tiny {cfg.name} did not run its attention through the two "
-             "kernels alone")
+    got = (counts["flash_prefill_attention"],
+           counts["flash_decode_attention"])
+    if cfg.family == "ssm":
+        want = (0, 0)
+    elif cfg.family == "hybrid":
+        n_tri = _hybrid_counts(cfg)[0]
+        want = (2 * n_tri, n * n_tri)
+    else:
+        want = got if min(got) > 0 else "both kernels"
+    if got != want or counts["chunked_prefill_attention_ref"] or \
+            counts["decode_attention_ref"]:
+        fail(f"tiny {cfg.name}: attention launches {got}, not {want}, or a "
+             "plain version ran on the card")
 
 
-def recurrent_model_run(torch, np, ops, cfg, params, S, n_steps, checks,
-                        seed, reference=None):
+def model_run(torch, np, ops, cfg, params, S, n_steps, checks, seed,
+              reference=None, cmp_cfg=None, check=None):
     """One prompt of S tokens through `prefill` and `n_steps` teacher-forced
     `decode_step`s in the weights' dtype, counters zeroed before each of
     the two. At each step i of `checks`, decode step i's logits are held
@@ -1358,19 +1435,26 @@ def recurrent_model_run(torch, np, ops, cfg, params, S, n_steps, checks,
     `reference` ({i: the f32 prefill logits of the same tokens}) the
     comparison is printed beside each path's RMS distance from the f32
     logits, and not checked: the bf16 rounding of both paths is then what
-    it measures. Returns (prefill s, median step s, prefill launches,
-    decode launches, {i: f32 prefill logits})."""
+    it measures. `cmp_cfg`, where given, is the config of the comparison
+    prefills. With `check` (phase 2's comparison), layer 0's attention
+    inputs of the prefill, of decode step 0 and of the last step are kept
+    and run through each kernel against its plain version once the counts
+    are read. Returns (prefill s, median step s, prefill launches, decode
+    launches, {i: f32 prefill logits})."""
     from repro_torch.models.model import decode_step, prefill
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (1, S + n_steps))).to("cuda")
+        0, cfg.vocab_size, (1, S + n_steps))).to(params.device)
     dtype = params.dtype
+    first = (lambda name, i: i == 0) if check else None
+    kept = []
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     t0 = time.monotonic()
-    logits, cache = prefill(params, cfg, {"tokens": toks[:, :S]},
-                            max_seq=S + n_steps, cache_dtype=dtype)
+    with kernel_calls(ops, kept, first):
+        logits, cache = prefill(params, cfg, {"tokens": toks[:, :S]},
+                                max_seq=S + n_steps, cache_dtype=dtype)
     torch.cuda.synchronize()
     t_prefill = time.monotonic() - t0
     print(f"  {cfg.name} {str(dtype)[6:]} prompt {S}: prefill peak "
@@ -1383,12 +1467,16 @@ def recurrent_model_run(torch, np, ops, cfg, params, S, n_steps, checks,
     steps, times = {}, []
     for i in range(n_steps):
         t0 = time.monotonic()
-        logits, cache = decode_step(params, cfg, toks[:, S + i], cache)
+        with kernel_calls(ops, kept, first if i in (0, n_steps - 1)
+                          else None):
+            logits, cache = decode_step(params, cfg, toks[:, S + i], cache)
         torch.cuda.synchronize()
         times.append(time.monotonic() - t0)
         if i in checks:
             steps[i] = logits.float()
     dec_counts = ops.counts()
+    if check:
+        check_calls(check, f"{cfg.name} layer 0", kept)
     if not torch.isfinite(logits.float()).all():
         fail(f"{cfg.name}: non-finite decode logits")
 
@@ -1396,8 +1484,8 @@ def recurrent_model_run(torch, np, ops, cfg, params, S, n_steps, checks,
         return ((x - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
     worst, prefilled = 0.0, {}
     for i, got in steps.items():
-        want, _ = prefill(params, cfg, {"tokens": toks[:, :S + i + 1]},
-                          cache_dtype=dtype)
+        want, _ = prefill(params, cmp_cfg or cfg,
+                          {"tokens": toks[:, :S + i + 1]}, cache_dtype=dtype)
         want = want.float()
         prefilled[i] = want
         err = (got - want).abs().max().item()
@@ -1451,7 +1539,7 @@ def recurrent_phase(torch, np, ops):
                 device="cuda").manual_seed(0), device="cuda",
                 dtype=torch.float32)
             for S, n_steps in prompts[cfg.family]:
-                reference[S] = recurrent_model_run(
+                reference[S] = model_run(
                     torch, np, ops, cfg, params, S, n_steps,
                     RECURRENT_CHECKS[S], seed=22 + S)[4]
             del params
@@ -1485,7 +1573,7 @@ def recurrent_phase(torch, np, ops):
                   f"{'tensor cores' if tc else 'CUDA cores'} "
                   "(TENSOR_CORE_HEAD_DIMS)")
         for S, n_steps in prompts[cfg.family]:
-            _, _, pre, dec, _ = recurrent_model_run(
+            _, _, pre, dec, _ = model_run(
                 torch, np, ops, cfg, params, S, n_steps, RECURRENT_CHECKS[S],
                 seed=22 + S, reference=reference.get(S))
             if cfg.family == "ssm":
@@ -1520,6 +1608,399 @@ def recurrent_phase(torch, np, ops):
         del params, cache, toks
         gc.collect()
         torch.cuda.empty_cache()
+    return by_path
+
+
+def bf16_bound(got, want, label) -> None:
+    """max |got - want| against four bf16 steps at max|want| (phase 9's
+    bound); fails beyond it."""
+    err = (got.float() - want.float()).abs().max().item()
+    limit = 4 * 2.0 ** -7 * want.float().abs().max().item()
+    print(f"  {label}: max_abs_err {err:.4e}, {err / limit:.4f} of "
+          f"4*2^-7*max|logit| = {limit:.4f}", flush=True)
+    if not err <= limit:
+        fail(f"{label}: logits differ by {err}, over {limit}")
+
+
+def path_launches(label, counts, need) -> dict:
+    """Fail unless each kernel of `need` launched in the path, every
+    prefill launch ran the tensor-core body and no plain version ran.
+    Returns the path's two kernel counts for the kernels' record."""
+    print(f"  {label} launches {json.dumps(counts)}", flush=True)
+    for name in need:
+        if counts[name] <= 0:
+            fail(f"{label}: {name} was not launched")
+    if counts["flash_prefill_wgmma"] != counts["flash_prefill_attention"]:
+        fail(f"{label}: {counts['flash_prefill_attention']} prefill "
+             f"launches, {counts['flash_prefill_wgmma']} on a tensor-core "
+             "body")
+    for name in ("chunked_prefill_attention_ref", "decode_attention_ref",
+                 "verify_attention_ref"):
+        if counts[name]:
+            fail(f"{label}: the plain {name} ran {counts[name]} times")
+    return {name: counts[name] for name in ("flash_prefill_attention",
+                                            "flash_decode_attention")}
+
+
+def run_launches(cfg, pre, dec) -> dict:
+    """`path_launches` of a `model_run`'s prefill and decode counts: the
+    prefill kernel's launches from the first, the decode kernel's from the
+    second."""
+    return {"flash_prefill_attention": path_launches(
+                f"{cfg.name} prefill", pre, ("flash_prefill_attention",)
+            )["flash_prefill_attention"],
+            "flash_decode_attention": path_launches(
+                f"{cfg.name} decode", dec, ("flash_decode_attention",)
+            )["flash_decode_attention"]}
+
+
+@contextlib.contextmanager
+def kernel_calls(ops, kept, pick):
+    """Within the block, keep the inputs of each `ops.prefill_attention`
+    and `ops.decode_attention` call that `pick(name, i)` accepts (i counts
+    that function's calls in the block from 0) in `kept`, as (name, args,
+    kw) with the tensors cloned: a cache written after the call cannot
+    change what is checked. With `pick` None nothing is wrapped."""
+    if pick is None:
+        yield kept
+        return
+
+    def cloned(x):
+        return x.clone() if hasattr(x, "clone") else x
+
+    def wrap(name, fn):
+        n = [0]
+
+        def spy(*args, **kw):
+            if pick(name, n[0]):
+                kept.append((name, tuple(map(cloned, args)),
+                             {k: cloned(x) for k, x in kw.items()}))
+            n[0] += 1
+            return fn(*args, **kw)
+        return spy
+    saved = {name: getattr(ops, name)
+             for name in ("prefill_attention", "decode_attention")}
+    for name, fn in saved.items():
+        setattr(ops, name, wrap(name, fn))
+    try:
+        yield kept
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def check_calls(check, label, kept) -> None:
+    """Each call `kernel_calls` kept, through its kernel's wrapper against
+    the plain version, with phase 2's `check`."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import flash_decode_attention
+    from repro_torch.kernels.flash_prefill import flash_prefill_attention
+    for name, args, kw in kept:
+        q, k, v = args[:3]
+        if name == "prefill_attention":
+            got = flash_prefill_attention(
+                q, k, v, kw.get("q_offset", 0), kw.get("kv_len"),
+                causal=kw.get("causal", True),
+                local_window=kw.get("local_window", 0))
+            want = ref.chunked_prefill_attention_ref(q, k, v, **kw)
+            what = (f"prefill q {tuple(q.shape)} T {k.shape[1]} q_offset "
+                    f"{kw.get('q_offset', 0)} kv_len {kw.get('kv_len')} "
+                    f"causal {kw.get('causal', True)}")
+        else:
+            kv_len = args[3]
+            got = flash_decode_attention(q, k, v, kv_len)
+            want = ref.decode_attention_ref(q, k, v, kv_len=kv_len)
+            lens = kv_len.tolist() if hasattr(kv_len, "tolist") else kv_len
+            what = f"decode q {tuple(q.shape)} T {k.shape[1]} kv_len {lens}"
+        check(f"{label} {what}", q.dtype, got, want)
+
+
+def whisper_run(torch, np, ops, cfg, params, check, n_steps=16, seed=40):
+    """Phase 13 (a): Whisper's `prefill` (the encoder over N(0,1) stub
+    frames and every decoder layer's cross K/V), `n_steps` greedy
+    `decode_step`s from a BOS token, then `forward` over the emitted
+    tokens. Step 0's logits against forward's position 0 (the reference's
+    decode adds the position-0 sinusoid at every step, so only step 0
+    matches) within the bf16 bound. Layer 0's attention inputs on both
+    paths (the encoder's in the prefill, self- and cross-attention in decode
+    steps 0 and n_steps - 1 and in forward's decoder) are run through each
+    kernel against its plain version. Returns the launches by path."""
+    from repro_torch.models import model as M
+    dev, dtype = params.device, params.dtype
+    nE, last = cfg.num_encoder_layers, 2 * cfg.num_layers * (n_steps - 1)
+    kept = []
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=dev).to(dtype)
+    bos = torch.full((1, 1), min(50258, cfg.vocab_size - 1), device=dev)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.monotonic()
+    with kernel_calls(ops, kept, lambda name, i: i == 0):
+        _, cache = M.prefill(params, cfg, {"tokens": bos, "frames": frames},
+                             max_seq=n_steps + 2, cache_dtype=dtype)
+    torch.cuda.synchronize()
+    t_prefill = time.monotonic() - t0
+    toks, times = [bos[:, 0]], []
+    # decode calls run (self, cross) per layer: layer 0's of steps 0 and
+    # n_steps - 1
+    with kernel_calls(ops, kept,
+                      lambda name, i: i in (0, 1, last, last + 1)):
+        for i in range(n_steps):
+            t0 = time.monotonic()
+            lg, cache = M.decode_step(params, cfg, toks[-1], cache)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            if i == 0:
+                step0 = lg.float()
+            toks.append(lg.argmax(-1))
+    main = path_launches(f"{cfg.name} prefill + {n_steps} decode steps",
+                         ops.counts(), ("flash_prefill_attention",
+                                        "flash_decode_attention"))
+    med = sorted(times)[len(times) // 2]
+    print(f"  {cfg.name}: prefill (encoder over {cfg.encoder_seq} frames "
+          f"and {cfg.num_layers} layers' cross K/V) {t_prefill:.4f} s; "
+          f"decode step median {med * 1e3:.2f} ms (min "
+          f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) over "
+          f"{n_steps} steps, synchronised; tokens "
+          f"{[int(t[0]) for t in toks]}", flush=True)
+
+    # forward over the emitted tokens: after the nE encoder layers, the
+    # decoder's layer 0 self- and cross-attention
+    ops.reset_counts()
+    with kernel_calls(ops, kept, lambda name, i: i in (nE, nE + 1)):
+        fw = M.forward(params, cfg, {"tokens": torch.stack(toks, 1),
+                                     "frames": frames})
+    fwd = path_launches(f"{cfg.name} forward over {len(toks)} tokens",
+                        ops.counts(), ("flash_prefill_attention",))
+    std = step0.std().item()
+    print(f"  {cfg.name}: step-0 logits std {std:.4f} (a zero model gives "
+          f"0), forward logits {tuple(fw.shape)}", flush=True)
+    if not std >= 1e-3 or not torch.isfinite(fw.float()).all():
+        fail(f"{cfg.name}: step-0 logits std {std}: the model is about "
+             "zero or not finite")
+    bf16_bound(step0, fw[:, 0], f"{cfg.name} decode step 0 vs forward "
+               "position 0")
+    check_calls(check, f"{cfg.name} layer 0", kept)
+    breakdown(torch, f"{cfg.name} decode_step ({2 * cfg.num_layers} "
+              "attention launches)",
+              lambda: M.decode_step(params, cfg, toks[-1],
+                                    dict(cache, pos=n_steps)), top=8)
+    return {"whisper prefill + decode (phase 13)": main,
+            "whisper forward (phase 13)": fwd}
+
+
+def vlm_run(torch, np, ops, port, cfg, params, check, S=4096, chunk=512,
+            stop_chunk=3, n_dec=16, seed=41):
+    """Phase 13 (b): an S-token prompt whose first num_patches positions
+    are patch embeddings, in `chunk`-token chunks through
+    `SegmentedPrefill`; suspended at every operator boundary of chunk
+    `stop_chunk` (another prefill in between each time) and resumed
+    `torch.equal` to an uninterrupted run; within the bf16 bound of the
+    fused `prefill`; unchanged (`torch.equal`) when only the tokens under
+    the patches differ. Then `n_dec` ragged decode steps at B 4 through a
+    `DecodeInstance`; each row's first step is held to the fused `prefill`
+    of its prompt and first token within the bf16 bound. Layer 0's
+    attention inputs of the first and last chunk and of the first and last
+    decode step run through each kernel against its plain version. Returns
+    the launches by path."""
+    from repro_torch.models.model import prefill
+    from repro_torch.models.segments import SegmentedPrefill
+    dev, dtype, P = params.device, params.dtype, cfg.num_patches
+    L, n_chunks = cfg.num_layers, -(-S // chunk)
+    kept = []
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ve = torch.randn((1, P, cfg.d_model), generator=gen, device=dev).to(dtype)
+    toks = rng.integers(0, cfg.vocab_size, (1, S))
+    ex = SegmentedPrefill(params, cfg, max_seq=S, chunk_tokens=chunk,
+                          cache_dtype=dtype)
+    ex.run_all(ex.start(toks[:, :chunk], vision_embeds=ve))     # warm-up
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.monotonic()
+    with kernel_calls(ops, kept,
+                      lambda name, i: i in (0, (n_chunks - 1) * L)):
+        task0 = ex.start(toks, vision_embeds=ve)
+        want = ex.run_all(task0)
+    torch.cuda.synchronize()
+    t_seg = time.monotonic() - t0
+    seg = path_launches(f"{cfg.name} segmented prefill of {S}",
+                        ops.counts(), ("flash_prefill_attention",))
+    spc = ex._segments_per_chunk
+    print(f"  {cfg.name}: {S} tokens ({P} patch positions) in "
+          f"{task0.n_chunks} chunks of {chunk}, {task0.total_segments} "
+          f"segments ({'/'.join(ex.ops)}), {t_seg:.4f} s synchronised",
+          flush=True)
+
+    other = rng.integers(0, cfg.vocab_size, (1, min(300, S // 4)))
+    task = ex.start(toks, vision_embeds=ve)
+    stops = range(stop_chunk * spc + 1, (stop_chunk + 1) * spc + 1)
+    for stop in stops:
+        while task.cursor < stop:
+            ex.step(task)
+        ex.run_all(ex.start(other))             # another prefill meanwhile
+    got = ex.run_all(task)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    print(f"  suspended at the {len(stops)} operator boundaries of chunk "
+          f"{stop_chunk} (segments {stops[0]}..{stops[-1]}): resumed logits "
+          f"torch.equal the uninterrupted run: {equal}", flush=True)
+    if not equal:
+        fail(f"{cfg.name}: the resumed prefill differs by "
+             f"{(got.float() - want.float()).abs().max().item()}")
+    fused, _ = prefill(params, cfg, {"tokens": torch.from_numpy(toks).to(dev),
+                                     "vision_embeds": ve}, cache_dtype=dtype)
+    bf16_bound(want, fused, f"{cfg.name} segmented vs fused prefill")
+    toks2 = toks.copy()
+    toks2[:, :P] = rng.integers(0, cfg.vocab_size, (1, P))
+    same = torch.equal(ex.run_all(ex.start(toks2, vision_embeds=ve)), want)
+    print(f"  other tokens under the {P} patches: logits torch.equal: "
+          f"{same}", flush=True)
+    if not same:
+        fail(f"{cfg.name}: the tokens under the patch embeddings changed "
+             "the logits")
+
+    prompts = [toks]
+    handoffs = [(int(want.argmax(-1)[0]), {
+        "k": task0.state["k_cache"], "v": task0.state["v_cache"], "pos": S})]
+    for n in (S * 3 // 4, S // 2, S // 4):
+        prompts.append(rng.integers(0, cfg.vocab_size, (1, n)))
+        t = ex.start(prompts[-1], vision_embeds=ve)
+        handoffs.append((int(ex.run_all(t).argmax(-1)[0]), {
+            "k": t.state["k_cache"], "v": t.state["v_cache"], "pos": n}))
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    # every row is admitted before the first step: n_dec steps at B 4
+    with kernel_calls(ops, kept, lambda name, i: i in (0, (n_dec - 1) * L)):
+        inst, out, calls = recorded_run(port, params, cfg, handoffs, n_dec)
+    dec = path_launches(f"{cfg.name} ragged decode B {len(handoffs)}",
+                        ops.counts(), ("flash_decode_attention",))
+    check_calls(check, f"{cfg.name} layer 0", kept)
+    for (first, cache), p in zip(handoffs, prompts):
+        n = cache["pos"]
+        fused, _ = prefill(params, cfg, {
+            "tokens": torch.from_numpy(np.append(p, [[first]], 1)).to(dev),
+            "vision_embeds": ve}, cache_dtype=dtype)
+        bf16_bound(logits_of(calls, n, 1), fused[0],
+                   f"{cfg.name} ragged step 0 of the {n}-token row vs fused "
+                   f"prefill of {n + 1} tokens")
+    steps = np.asarray(inst.step_samples) * 1e3
+    print(f"  {cfg.name}: {inst.steps} ragged decode steps at B "
+          f"{len(handoffs)} (prompts {[c['pos'] for _, c in handoffs]}), "
+          f"step p50 {np.median(steps):.2f} ms max {steps.max():.2f} ms",
+          flush=True)
+    if any(len(o) != n_dec + 1 or not all(0 <= x < cfg.vocab_size
+                                          for x in o) for o in out):
+        fail(f"{cfg.name}: bad decode outputs {out}")
+    return {"internvl2 segmented prefill + ragged decode (phase 13)":
+            {"flash_prefill_attention": seg["flash_prefill_attention"],
+             "flash_decode_attention": dec["flash_decode_attention"]}}
+
+
+def pairs_run(torch, np, ops, cfg, params, check, S=2048, n_steps=16,
+              seed=42):
+    """Phase 13 (c): Llama4-Maverick's (dense, MoE) pairs through `prefill`
+    of S tokens and `n_steps` teacher-forced `decode_step`s, each held to a
+    `prefill` of the same tokens within the bf16 bound. The comparison
+    prefills run drop-free (capacity factor E/k, as the reference's own MoE
+    decode tests do): a one-token decode step never drops an expert pair,
+    and with one pair the K/V of both layers come before any MoE output, so
+    the published capacity's drops in the first prefill change nothing the
+    steps read. Then a profiler breakdown of one step with the time under
+    `aten::bmm`. Returns the launches by path."""
+    import dataclasses
+
+    from repro_torch.models.model import decode_step, prefill
+    drop_free = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    _, _, pre, dec, _ = model_run(
+        torch, np, ops, cfg, params, S, n_steps, range(n_steps), seed,
+        cmp_cfg=drop_free, check=check)
+    main = run_launches(cfg, pre, dec)
+    es = params.dtype.itemsize
+    n_moe = cfg.num_layers // 2
+    expert_bytes = n_moe * cfg.num_experts * 3 * cfg.d_model * cfg.d_ff * es
+    print(f"  expert bmm bytes per decode step (all {cfg.num_experts} "
+          f"experts of {n_moe} MoE layer(s)): {expert_bytes / 1e9:.2f} GB, "
+          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s",
+          flush=True)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, S + 1))).to(params.device)
+    _, cache = prefill(params, cfg, {"tokens": toks[:, :S]}, max_seq=S + 1,
+                       cache_dtype=params.dtype)
+    bmm_ms = breakdown(torch, f"{cfg.name} decode_step at position {S}",
+                       lambda: decode_step(params, cfg, toks[:, S],
+                                           dict(cache)),
+                       top=8, cpu_ops=("aten::bmm",)).get("aten::bmm")
+    if bmm_ms:
+        print(f"  the expert bmm: {bmm_ms:.2f} ms against its bytes bound "
+              f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms, share "
+              f"{expert_bytes / HBM_BYTES_PER_S * 1e3 / bmm_ms:.3f}",
+              flush=True)
+    return {"llama4 pair prefill + decode (phase 13)": main}
+
+
+def families_phase(torch, np, ops, port, check):
+    """Phase 13: Whisper-large-v3 whole, InternVL2-76B at 8 of its 80
+    layers, Llama4-Maverick at one (dense, MoE) pair, and Llama3.2-1B,
+    Qwen2-1.5B, Qwen2.5-3B and Minitron-4B whole, each at published width
+    in bf16 with random weights, one at a time on a card the earlier phases
+    released. Returns the launches by path."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.params import init_params, redraw_norms
+    gib = 2 ** 30
+
+    def draw(cfg, cut=""):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda",
+                             dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in params.parameters())
+        print(f"\n{cfg.name}: {cfg.num_layers} layers{cut}, d_model "
+              f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+              f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}; "
+              f"{n / 1e9:.3f} B params in bf16, drawn in "
+              f"{time.monotonic() - t0:.1f} s; memory allocated "
+              f"{torch.cuda.memory_allocated() / gib:.2f} GiB", flush=True)
+        return params
+
+    by_path = {}
+    cfg = get_config("whisper_large_v3")
+    params = draw(cfg, f" + {cfg.num_encoder_layers} encoder layers")
+    redraw_norms(params, seed=1)
+    by_path.update(whisper_run(torch, np, ops, cfg, params, check))
+    del params
+
+    full = get_config("internvl2_76b")
+    cfg = dataclasses.replace(full, num_layers=8)
+    params = draw(cfg, f" of {full.num_layers}")
+    by_path.update(vlm_run(torch, np, ops, port, cfg, params, check))
+    del params
+
+    full = get_config("llama4_maverick_400b")
+    cfg = dataclasses.replace(full, num_layers=2)
+    params = draw(cfg, f" (one dense/MoE pair) of {full.num_layers}, "
+                  f"{cfg.num_experts} experts top-{cfg.experts_per_token} "
+                  f"of d_ff {cfg.d_ff}, dense d_ff {cfg.d_ff_dense}")
+    by_path.update(pairs_run(torch, np, ops, cfg, params, check))
+    del params
+
+    for arch in ("llama3_2_1b", "qwen2_1_5b", "qwen2_5_3b", "minitron_4b"):
+        cfg = get_config(arch)
+        params = draw(cfg)
+        _, _, pre, dec, _ = model_run(torch, np, ops, cfg, params, 1024, 8,
+                                      range(8), seed=43, check=check)
+        by_path[f"{arch} prefill + decode (phase 13)"] = \
+            run_launches(cfg, pre, dec)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return by_path
 
 
@@ -1872,6 +2353,56 @@ def main() -> None:
             enable_gqa=True))
     row["max_abs_err"] = err
     record[name] = row
+
+    # phase 13's shapes, bf16: prefill rows L2-warm, decode rows L2-cold
+    print("\nphase 13's shapes (Whisper, InternVL2, Llama4-Maverick), bf16")
+    for label, Sq, T, H, K, hd, qoff, kv_len, causal in PHASE13_PREFILL:
+        q = randn((1, Sq, H, hd), dtype)
+        k, v = randn((1, T, K, hd), dtype), randn((1, T, K, hd), dtype)
+        name = f"flash_prefill_attention {label}"
+        got, body = prefill(q, k, v, qoff, kv_len, causal=causal)
+        err = check(f"{name} {body}", dtype, got,
+                    ref.chunked_prefill_attention_ref(
+                        q, k, v, q_offset=qoff, kv_len=kv_len,
+                        causal=causal))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pos = torch.arange(T, device=dev)
+        mask = (pos[None, :] <= qoff + torch.arange(Sq, device=dev)[:, None]) \
+            & (pos[None, :] < kv_len) if causal else None
+        row = dict(
+            ms=cuda_ms(torch, lambda: flash_prefill_attention(
+                q, k, v, qoff, kv_len, causal=causal)),
+            plain_ms=cuda_ms(torch, lambda: ref.chunked_prefill_attention_ref(
+                q, k, v, q_offset=qoff, kv_len=kv_len, causal=causal),
+                iters=5),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+            max_abs_err=err, body=body)
+        row["bound_ms"], row["bound_by"] = bound(*prefill_work(
+            1, Sq, H, K, hd, qoff, kv_len, es, causal=causal))
+        record[name] = row
+        print(f"  {name}: {json.dumps(row)}; share of the bound "
+              f"{row['bound_ms'] / row['ms']:.4f}", flush=True)
+    for label, lens, T, H, K, hd in PHASE13_DECODE:
+        B = len(lens)
+        q = randn((B, H, hd), dtype)
+        k, v = randn((B, T, K, hd), dtype), randn((B, T, K, hd), dtype)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        name = f"flash_decode_attention {label}"
+        err = check(name, dtype, flash_decode_attention(q, k, v, lens_t),
+                    ref.decode_attention_ref(q, k, v, kv_len=lens_t))
+        mask = (torch.arange(T, device=dev)[None, :]
+                < lens_t[:, None])[:, None, None, :]
+        row = timed(
+            name, (B, T, K, hd), decode_work(H, K, hd, lens, es),
+            kernel=lambda k, v: flash_decode_attention(q, k, v, lens_t),
+            plain=lambda k, v: ref.decode_attention_ref(
+                q, k, v, kv_len=lens_t),
+            library=lambda k, v: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True))
+        row["max_abs_err"] = err
+        record[name] = row
     del pool_k, pool_v, q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
 
@@ -1987,8 +2518,9 @@ def main() -> None:
             counts["decode_attention_ref"]:
         fail("the tiny hybrid did not go through the two kernels alone")
     del p_cpu, p_gpu, handoffs
-    for arch in ("mamba2_370m", "recurrentgemma_9b"):
-        tiny_recurrent_card_vs_cpu(torch, np, ops, arch)
+    for arch in ("mamba2_370m", "recurrentgemma_9b", "whisper_large_v3",
+                 "internvl2_76b", "llama4_maverick_400b"):
+        tiny_family_card_vs_cpu(torch, np, ops, arch)
     if args.quick:
         print(f"\n--quick: stopped after phase 3 "
               f"({time.monotonic() - t_start:.1f} s)")
@@ -2121,6 +2653,16 @@ def main() -> None:
     rec_counts = recurrent_phase(torch, np, ops)
     print(f"phase 12 took {time.monotonic() - t0:.1f} s", flush=True)
 
+    # --- 13. the remaining families at full width ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("13. the remaining families: Whisper-large-v3, InternVL2-76B (8 "
+          "of 80 layers), Llama4-Maverick (one pair), Llama3.2-1B, "
+          "Qwen2-1.5B, Qwen2.5-3B, Minitron-4B; published width, bf16")
+    t0 = time.monotonic()
+    fam_counts = families_phase(torch, np, ops, port, check)
+    print(f"phase 13 took {time.monotonic() - t0:.1f} s", flush=True)
+
     kernels = []
     for name, route, src, replaces, main in (
             ("flash_prefill_attention", "cuda",
@@ -2143,7 +2685,7 @@ def main() -> None:
         }[name]
         by_path["colocation (phase 10)"] = hybrid_counts[name]
         by_path["moe serve (phase 11)"] = moe_counts[name]
-        for path, c in rec_counts.items():
+        for path, c in {**rec_counts, **fam_counts}.items():
             if name in c:
                 by_path[path] = c[name]
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2159,6 +2701,10 @@ def main() -> None:
         if hd256:                                # RecurrentGemma-9B's shape
             row256 = record[f"{name} {hd256}"]
             entry["hd256"] = {"shape": hd256, **{k: row256[k] for k in keys}}
+        if name in PHASE13_ROWS:                 # phase 13's shapes
+            entry["phase13"] = {label: {k: record[f"{name} {label}"][k]
+                                        for k in keys}
+                                for label in PHASE13_ROWS[name]}
         kernels.append(entry)
     print(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
     print(smi.stdout.strip().splitlines()[0])

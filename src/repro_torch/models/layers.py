@@ -1,6 +1,7 @@
-"""Model building blocks of the ported families: RMSNorm, split-half RoPE,
-SwiGLU, the top-k MoE FFN, the reference attention, and the recurrent
-layers (the depthwise causal conv, RG-LRU and Mamba2's chunked SSD).
+"""Model building blocks of the ported families: RMSNorm and LayerNorm,
+split-half RoPE and Whisper's sinusoidal positions, SwiGLU and the GELU
+MLP, the top-k MoE FFN, the reference attention, and the recurrent layers
+(the depthwise causal conv, RG-LRU and Mamba2's chunked SSD).
 
 Counterpart of src/repro/models/layers.py (the ported families' part of
 it). Plain functions on tensors; the large matrix products are
@@ -11,6 +12,7 @@ the sequence.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -18,7 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ref import naive_attention
 
-__all__ = ["rms_norm", "rope_freqs", "apply_rope", "swiglu", "moe_router",
+__all__ = ["rms_norm", "layer_norm", "rope_freqs", "apply_rope",
+           "sinusoidal_positions", "swiglu", "gelu_mlp", "moe_router",
            "moe_apply", "moe_ffn", "naive_attention", "causal_conv1d",
            "rglru", "rglru_step", "ssd_chunked", "ssd_step"]
 
@@ -29,6 +32,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + w.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32, y * w + b: the weight scales by w itself, not by
+    1 + w as `rms_norm` does (the reference's rule)."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -50,6 +64,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed positional embeddings (seq, dim) in f32: sin on
+    the even channels, cos on the odd ones."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device)
+                    * (-math.log(10000.0) / (dim // 2)))
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 def gate_up(x: torch.Tensor, w_in: torch.Tensor) -> torch.Tensor:
     """silu(x W_gate) * (x W_up) with w_in (D, 2, F) gate|up."""
     D, _, Fd = w_in.shape
@@ -60,6 +87,13 @@ def gate_up(x: torch.Tensor, w_in: torch.Tensor) -> torch.Tensor:
 def swiglu(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
     """w_in: (D, 2, F) gate|up on an explicit axis; w_out: (F, D)."""
     return gate_up(x, w_in) @ w_out
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """Whisper's MLP: GELU in its tanh form (`jax.nn.gelu`'s default, which
+    the reference uses) between two biased projections."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
 
 
 # ---------------------------------------------------------------------------

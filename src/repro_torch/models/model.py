@@ -1,23 +1,27 @@
 """The model families of the port: parameter shapes, embedding,
-projections, the FFN (SwiGLU or top-k MoE, by the layer's keys), the
-recurrent blocks, the language-model head, `prefill`, the decode steps and
-the speculative verify step.
+projections, the FFN (SwiGLU, top-k MoE or Whisper's GELU MLP, by the
+layer's keys), the recurrent blocks, the language-model head, the
+full-sequence `forward`, `prefill`, the decode steps and the speculative
+verify step.
 
-Counterpart of src/repro/models/model.py for dense stacks, MoE at
-moe_layer_freq 1, ssm (Mamba2) and the recurrent hybrid (RecurrentGemma:
-(rglru, rglru, attn) triples and a tail of rglru layers). The reference
-scans a jitted body over stacked layer parameters; here the layers are a
-Python loop of eager PyTorch ops. Attention goes through `kernels.ops`,
-which runs the CUDA prefill, decode and verify kernels on the card and the
-plain versions on the CPU.
+Counterpart of src/repro/models/model.py for every family of its
+`ARCH_IDS`: dense stacks and vlm (a dense stack whose leading positions
+are patch embeddings), MoE in every layer or in interleaved (dense, MoE)
+pairs, ssm (Mamba2), the recurrent hybrid (RecurrentGemma: (rglru, rglru,
+attn) triples and a tail of rglru layers) and audio (Whisper: a
+bidirectional encoder and a decoder that cross-attends to it). The
+reference scans a jitted body over stacked layer parameters; here the
+layers are a Python loop of eager PyTorch ops. Attention goes through
+`kernels.ops`, which runs the CUDA prefill, decode and verify kernels on
+the card and the plain versions on the CPU.
 
 Serving (`SegmentedPrefill`, the ragged decode step, speculation) takes the
-dense and MoE stacks only, as in the reference; ssm and the hybrid are
-served by `prefill` and `decode_step`.
+dense, vlm and uniform MoE stacks only, as in the reference; the pairs,
+ssm, the hybrid and audio are served by `prefill` and `decode_step`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,38 +33,61 @@ from repro_torch.models import layers as L
 
 Params = Any          # repro_torch.params.ModelParams (mapping-style access)
 
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Admit dense stacks, MoE with an MoE FFN in every layer, ssm and the
-    recurrent hybrid. Interleaved dense/MoE pairs, audio and vlm are not
-    ported."""
-    if cfg.family == "dense" and not cfg.num_experts:
-        return
-    if cfg.family == "moe" and cfg.num_experts and cfg.moe_layer_freq == 1:
-        return
-    if cfg.family in ("ssm", "hybrid"):
-        return
-    raise NotImplementedError(
-        f"family {cfg.family!r} (num_experts={cfg.num_experts}, "
-        f"moe_layer_freq={cfg.moe_layer_freq}) is not ported; only dense, "
-        "uniform MoE, ssm and the recurrent hybrid are")
+    """Admit every family of the reference's `ARCH_IDS`: dense, vlm, ssm,
+    the recurrent hybrid and audio, and MoE with an MoE FFN in every layer
+    (moe_layer_freq 1) or in every second one (interleaved (dense, MoE)
+    pairs, moe_layer_freq 2). Raise for any other family or frequency."""
+    if cfg.family not in FAMILIES or \
+            (cfg.num_experts and cfg.moe_layer_freq not in (1, 2)):
+        raise NotImplementedError(
+            f"family {cfg.family!r} (num_experts={cfg.num_experts}, "
+            f"moe_layer_freq={cfg.moe_layer_freq}) is not a family of the "
+            f"reference: {FAMILIES}, MoE at moe_layer_freq 1 or 2")
 
 
-def _attn_layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+def _is_pairs(cfg: ModelConfig) -> bool:
+    """Interleaved (dense, MoE) layer pairs (Llama4-Maverick)."""
+    return bool(cfg.num_experts) and cfg.moe_layer_freq == 2
+
+
+def _attn_layer_shapes(cfg: ModelConfig, cross: bool = False,
+                       moe: Optional[bool] = None
+                       ) -> Dict[str, Tuple[int, ...]]:
+    """One attention layer and its FFN, as the reference lays it out:
+    audio adds the LayerNorm biases, the GELU MLP with its biases and, with
+    `cross`, the decoder's cross-attention (`*_x`); `moe` (default: the
+    config has experts) picks the MoE FFN, and the dense half of a pair
+    takes d_ff_dense."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, K = cfg.num_heads, cfg.num_kv_heads
+    if moe is None:
+        moe = bool(cfg.num_experts)
     layer = {"ln1": (d,), "wq": (d, H * hd), "wk": (d, K * hd),
              "wv": (d, K * hd), "wo": (H * hd, d)}
     if cfg.qkv_bias:
         layer.update(bq=(H * hd,), bk=(K * hd,), bv=(K * hd,))
-    if cfg.num_experts:
+    if cfg.family == "audio":
+        layer["ln1_b"] = (d,)
+    if cross:
+        layer.update(ln_x=(d,), ln_x_b=(d,), wq_x=(d, H * hd),
+                     wk_x=(d, K * hd), wv_x=(d, K * hd), wo_x=(H * hd, d))
+    if moe:
         # per expert: gate|up concatenated on the last axis, (E, D, 2F)
         E = cfg.num_experts
         layer.update(router=(d, E), wi=(E, d, 2 * cfg.d_ff),
                      wd=(E, cfg.d_ff, d), ln2=(d,))
+    elif cfg.family == "audio":
+        layer.update(ln2=(d,), ln2_b=(d,), wi=(d, cfg.d_ff), bi=(cfg.d_ff,),
+                     wd=(cfg.d_ff, d), bd=(d,))
     else:
         # gate|up as an explicit (2, F) axis, as the reference stores it
-        layer.update(ln2=(d,), wi=(d, 2, cfg.d_ff), wd=(cfg.d_ff, d))
+        ff = cfg.d_ff_dense if (cfg.num_experts and cfg.d_ff_dense) \
+            else cfg.d_ff
+        layer.update(ln2=(d,), wi=(d, 2, ff), wd=(ff, d))
     return layer
 
 
@@ -104,9 +131,11 @@ def _hybrid_counts(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def model_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Parameter shapes of a ported model, identical to the reference's:
-    a stacked `layers` group (dense, MoE, ssm), or for the hybrid `blocks`
-    = {r1, r2, attn} stacked over the triples and a stacked `tail`."""
+    """Parameter shapes, identical to the reference's: a stacked `layers`
+    group (dense, vlm, MoE, ssm; audio's decoder, beside `enc_layers` and
+    the LayerNorm biases of both final norms); for the pairs `pairs` =
+    {dense, moe} stacked over num_layers // 2; for the hybrid `blocks` =
+    {r1, r2, attn} stacked over the triples and a stacked `tail`."""
     _check_ported(cfg)
     d = cfg.d_model
     out: Dict[str, Any] = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
@@ -121,6 +150,18 @@ def model_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                          "attn": _stack(_attn_layer_shapes(cfg), n_tri)}
         if tail:
             out["tail"] = _stack(_rglru_layer_shapes(cfg), tail)
+    elif cfg.family == "audio":
+        out.update(enc_final_norm=(d,), enc_final_norm_b=(d,),
+                   final_norm_b=(d,))
+        out["enc_layers"] = _stack(_attn_layer_shapes(cfg),
+                                   cfg.num_encoder_layers)
+        out["layers"] = _stack(_attn_layer_shapes(cfg, cross=True),
+                               cfg.num_layers)
+    elif _is_pairs(cfg):
+        n_pairs = cfg.num_layers // 2
+        out["pairs"] = {
+            "dense": _stack(_attn_layer_shapes(cfg, moe=False), n_pairs),
+            "moe": _stack(_attn_layer_shapes(cfg, moe=True), n_pairs)}
     else:
         out["layers"] = _stack(_attn_layer_shapes(cfg), cfg.num_layers)
     return out
@@ -153,10 +194,42 @@ def _project_qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
             v.reshape(B, S, K, hd))
 
 
+LayerParams = Dict[str, torch.Tensor]
+
+
+def _attn_layers(params: Params, cfg: ModelConfig
+                 ) -> Iterator[Tuple[LayerParams, Tuple[int, ...]]]:
+    """Each attention layer of a dense, vlm, MoE, pairs or audio (decoder)
+    stack in order: its parameters, and its index into the leading axes of
+    the k/v cache ((l,), or (pair, 0 | 1) for the pairs' (L/2, 2, ...)
+    lead)."""
+    if _is_pairs(cfg):
+        pairs = params["pairs"]
+        for t in range(cfg.num_layers // 2):
+            for j, sub in enumerate(("dense", "moe")):
+                yield _at(pairs[sub], t), (t, j)
+    else:
+        for l in range(cfg.num_layers):
+            yield layer_params(params, l), (l,)
+
+
+def _norm(cfg: ModelConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
+          key: str) -> torch.Tensor:
+    """The pre-norm `key` of a layer: LayerNorm where the layer has its bias
+    (`key + "_b"`, audio), RMSNorm otherwise."""
+    if key + "_b" in p:
+        return L.layer_norm(h, p[key], p[key + "_b"], cfg.norm_eps)
+    return L.rms_norm(h, p[key], cfg.norm_eps)
+
+
 def ffn_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
               h: torch.Tensor) -> torch.Tensor:
-    """The FFN variant follows the layer's keys, as the reference's does."""
-    x = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    """The FFN variant follows the layer's keys, as the reference's does:
+    `ln2_b` means LayerNorm and the GELU MLP (audio), `router` the MoE FFN,
+    otherwise SwiGLU."""
+    x = _norm(cfg, p, h, "ln2")
+    if "ln2_b" in p:
+        return h + L.gelu_mlp(x, p["wi"], p["bi"], p["wd"], p["bd"])
     if "router" in p:
         return h + L.moe_ffn(x, p["router"], p["wi"], p["wd"],
                              k=cfg.experts_per_token,
@@ -165,26 +238,66 @@ def ffn_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     return h + L.swiglu(x, p["wi"], p["wd"])
 
 
-def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor,
-            norm_key: str = "final_norm") -> torch.Tensor:
-    h = L.rms_norm(h, params[norm_key], cfg.norm_eps)
+def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    """The final norm (`_norm`'s rule: LayerNorm where `final_norm_b` is
+    there, audio) and the vocabulary projection."""
+    h = _norm(cfg, params, h, "final_norm")
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     # the matmul runs in the weights' type (an f32 prefill state casts down)
     return h.to(w.dtype) @ w
 
 
+def _merge_vision(h: torch.Tensor, vision_embeds: torch.Tensor
+                  ) -> torch.Tensor:
+    """Replace the leading num_patches positions of h (B, S, D) with the
+    patch embeddings (B, P, D)."""
+    P = vision_embeds.shape[1]
+    return torch.cat([vision_embeds.to(h.dtype), h[:, P:]], dim=1)
+
+
 def attn_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-               h: torch.Tensor, *, positions: torch.Tensor):
-    """Pre-norm attention over the whole sequence (causal, within
-    cfg.local_window when set) through the prefill kernel. Returns
-    (h, (k, v)), k/v (B, S, K, hd) after RoPE for the cache."""
-    x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+               h: torch.Tensor, *, positions: torch.Tensor,
+               use_rope: bool = True, causal: bool = True):
+    """Pre-norm self-attention over the whole sequence through the prefill
+    kernel: causal (within cfg.local_window when set) or, with
+    `causal=False`, bidirectional (Whisper's encoder); RoPE unless
+    `use_rope=False` (Whisper's sinusoids are added to the input instead).
+    Returns (h, (k, v)), k/v (B, S, K, hd) for the cache."""
+    x = _norm(cfg, p, h, "ln1")
     q, k, v = _project_qkv(cfg, p, x)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = ops.prefill_attention(q, k, v, causal=True,
+    if use_rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = ops.prefill_attention(q, k, v, causal=causal,
                               local_window=cfg.local_window)
     return h + o.reshape(h.shape[0], h.shape[1], -1) @ p["wo"], (k, v)
+
+
+def _cross_kv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+              enc_out: torch.Tensor):
+    """A decoder layer's cross-attention keys and values over the encoder
+    output (B, T, D): each (B, T, K, hd)."""
+    B, T = enc_out.shape[:2]
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return ((enc_out @ p["wk_x"]).reshape(B, T, K, hd),
+            (enc_out @ p["wv_x"]).reshape(B, T, K, hd))
+
+
+def _cross_attn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                h: torch.Tensor, xk: torch.Tensor,
+                xv: torch.Tensor) -> torch.Tensor:
+    """Whisper's cross-attention of the decoder positions h (B, S, D) over
+    every encoder key: the prefill kernel without a mask, or for one
+    position (a decode step) the decode kernel with kv_len = T on every row
+    (its query at T - 1 sees all T keys)."""
+    B, S = h.shape[:2]
+    x = L.layer_norm(h, p["ln_x"], p["ln_x_b"], cfg.norm_eps)
+    q = (x @ p["wq_x"]).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    if S == 1:
+        o = ops.decode_attention(q[:, 0], xk, xv, xk.shape[1])
+    else:
+        o = ops.prefill_attention(q, xk, xv, causal=False)
+    return h + o.reshape(B, S, -1) @ p["wo_x"]
 
 
 def rglru_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -239,6 +352,121 @@ def ssm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Full-sequence forward
+# ---------------------------------------------------------------------------
+
+
+def _run_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
+                positions: torch.Tensor,
+                cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Every layer of a non-audio model over the whole sequence h (B, S,
+    D). With `cache` (the `init_cache` layout), each layer's state goes
+    into it: the SSD and conv states for ssm; for the hybrid the RG-LRU and
+    conv states and each attention layer's last window of K/V as a ring;
+    for the attention stacks the K/V at positions [0, S)."""
+    S = h.shape[1]
+    if cfg.family == "ssm":
+        for l in range(cfg.num_layers):
+            h, (ssm_s, conv_s) = ssm_block(cfg, layer_params(params, l), h)
+            if cache is not None:
+                cache["ssm"][l] = ssm_s
+                cache["conv"][l] = conv_s
+    elif cfg.family == "hybrid":
+        blocks = params["blocks"]
+        n_tri, tail = _hybrid_counts(cfg)
+        for t in range(n_tri):
+            for r in ("1", "2"):
+                h, (h_s, c_s) = rglru_block(cfg, _at(blocks["r" + r], t), h)
+                if cache is not None:
+                    cache["h" + r][t] = h_s
+                    cache["conv" + r][t] = c_s
+            p = _at(blocks["attn"], t)
+            h, (k, v) = attn_block(cfg, p, h, positions=positions)
+            h = ffn_block(cfg, p, h)
+            if cache is not None:
+                win = cache["k"].shape[2]
+                cache["k"][t] = _last_window(k, win)
+                cache["v"][t] = _last_window(v, win)
+        for t in range(tail):
+            h, (h_s, c_s) = rglru_block(cfg, _at(params["tail"], t), h)
+            if cache is not None:
+                cache["h_tail"][t] = h_s
+                cache["conv_tail"][t] = c_s
+    else:
+        for p, at in _attn_layers(params, cfg):
+            h, (k, v) = attn_block(cfg, p, h, positions=positions)
+            h = ffn_block(cfg, p, h)
+            if cache is not None:
+                cache["k"][at][:, :S] = k
+                cache["v"][at][:, :S] = v
+    return h
+
+
+def _embed(params: Params, cfg: ModelConfig, batch: Dict[str, Any]):
+    """The token embeddings of batch["tokens"] (B, S), with the leading
+    positions replaced by batch["vision_embeds"] for vlm."""
+    tokens = torch.as_tensor(batch["tokens"], device=params.device)
+    h = embed_tokens(cfg, params, tokens)
+    if cfg.family == "vlm":
+        h = _merge_vision(h, torch.as_tensor(batch["vision_embeds"],
+                                             device=h.device))
+    return h
+
+
+def forward(params: Params, cfg: ModelConfig,
+            batch: Dict[str, Any]) -> torch.Tensor:
+    """Full-sequence forward of every family -> logits (B, S, V), with no
+    cache: batch["tokens"] (B, S), and batch["vision_embeds"] (B, P, D) for
+    vlm or batch["frames"] (B, encoder_seq, D) for audio. Attention runs the
+    prefill kernel on the card. Inference only: no autograd and no remat
+    (the parameters are frozen)."""
+    _check_ported(cfg)
+    if cfg.family == "audio":
+        return _forward_audio(params, cfg, batch)
+    h = _embed(params, cfg, batch)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    return lm_head(cfg, params, _run_layers(params, cfg, h, positions))
+
+
+def _encode(params: Params, cfg: ModelConfig,
+            frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over the stub frame embeddings (B, T, D), in their
+    dtype: sinusoidal positions, bidirectional self-attention through the
+    prefill kernel (no RoPE, no mask), the GELU MLP, the final LayerNorm."""
+    T = frames.shape[1]
+    h = frames + L.sinusoidal_positions(T, cfg.d_model,
+                                        frames.device).to(frames.dtype)
+    enc_pos = torch.arange(T, device=h.device)[None, :]
+    for l in range(cfg.num_encoder_layers):
+        p = _at(params["enc_layers"], l)
+        h, _ = attn_block(cfg, p, h, positions=enc_pos, use_rope=False,
+                          causal=False)
+        h = ffn_block(cfg, p, h)
+    return _norm(cfg, params, h, "enc_final_norm")
+
+
+def _forward_audio(params: Params, cfg: ModelConfig,
+                   batch: Dict[str, Any]) -> torch.Tensor:
+    """Whisper over batch["frames"] and the decoder tokens batch["tokens"]
+    (B, S): the encoder, then each decoder layer's causal self-attention,
+    cross-attention over the encoder output and GELU MLP."""
+    dev = params.device
+    enc_out = _encode(params, cfg, torch.as_tensor(batch["frames"],
+                                                   device=dev))
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    S = tokens.shape[1]
+    h = embed_tokens(cfg, params, tokens)
+    h = h + L.sinusoidal_positions(S, cfg.d_model, dev).to(h.dtype)
+    positions = torch.arange(S, device=dev)[None, :]
+    for l in range(cfg.num_layers):
+        p = layer_params(params, l)
+        h, _ = attn_block(cfg, p, h, positions=positions, use_rope=False)
+        h = _cross_attn(cfg, p, h, *_cross_kv(cfg, p, enc_out))
+        h = ffn_block(cfg, p, h)
+    return lm_head(cfg, params, h)
+
+
+# ---------------------------------------------------------------------------
 # Cache and prefill
 # ---------------------------------------------------------------------------
 
@@ -247,8 +475,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
                  dtype=torch.bfloat16) -> Dict[str, Tuple]:
     """name -> (shape, dtype), as the reference's. The recurrent states (ssm,
     h*) are f32 whatever `dtype`; the hybrid's k/v are a ring of
-    min(local_window or max_seq, max_seq) slots. "pos" is a Python int in
-    the port's caches."""
+    min(local_window or max_seq, max_seq) slots; the pairs' k/v lead with
+    (L/2, 2); audio adds each decoder layer's cross K/V `xk`/`xv` over the
+    encoder_seq encoder positions. "pos" is a Python int in the port's
+    caches."""
     _check_ported(cfg)
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     out: Dict[str, Tuple] = {}
@@ -272,8 +502,14 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
             out["h_tail"] = ((tail, batch, lw), torch.float32)
             out["conv_tail"] = ((tail, batch, W - 1, lw), dtype)
     else:
-        out["k"] = ((cfg.num_layers, batch, max_seq, K, hd), dtype)
-        out["v"] = ((cfg.num_layers, batch, max_seq, K, hd), dtype)
+        lead = (cfg.num_layers // 2, 2) if _is_pairs(cfg) \
+            else (cfg.num_layers,)
+        out["k"] = (lead + (batch, max_seq, K, hd), dtype)
+        out["v"] = (lead + (batch, max_seq, K, hd), dtype)
+        if cfg.family == "audio":
+            x = (cfg.num_layers, batch, cfg.encoder_seq, K, hd)
+            out["xk"] = (x, dtype)
+            out["xv"] = (x, dtype)
     return out
 
 
@@ -300,55 +536,47 @@ def _last_window(k: torch.Tensor, win: int) -> torch.Tensor:
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             max_seq: int = 0, cache_dtype=torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """The whole prompt batch["tokens"] (B, S) in one pass. Returns the last
-    position's logits (B, V) and the populated cache (`init_cache` layout,
-    pos = S): for ssm the SSD and conv states of every layer, for the
-    hybrid the RG-LRU and conv states and each attention layer's last
-    window of K/V as a ring, for dense and MoE stacks the K/V padded to
-    max_seq (default S). Attention runs the prefill kernel on the card;
-    serving prefills dense and MoE prompts through `SegmentedPrefill`."""
+    """The whole prompt batch["tokens"] (B, S) in one pass (with
+    batch["vision_embeds"] for vlm). Returns the last position's logits
+    (B, V) and the populated cache (`init_cache` layout, pos = S): for ssm
+    the SSD and conv states of every layer, for the hybrid the RG-LRU and
+    conv states and each attention layer's last window of K/V as a ring,
+    for the attention stacks the K/V padded to max_seq (default S). Audio
+    is the reference's encoder pass instead (`_prefill_audio`). Attention
+    runs the prefill kernel on the card; serving prefills dense, vlm and
+    uniform MoE prompts through `SegmentedPrefill`."""
     _check_ported(cfg)
-    dev = params.device
-    tokens = torch.as_tensor(batch["tokens"], device=dev)
-    B, S = tokens.shape
-    max_seq = max_seq or S
-    positions = torch.arange(S, device=dev)[None, :]
-    cache = init_cache(cfg, B, max_seq, cache_dtype, dev)
-    h = embed_tokens(cfg, params, tokens)
-
-    if cfg.family == "ssm":
-        for l in range(cfg.num_layers):
-            h, (ssm_s, conv_s) = ssm_block(cfg, layer_params(params, l), h)
-            cache["ssm"][l] = ssm_s
-            cache["conv"][l] = conv_s
-    elif cfg.family == "hybrid":
-        blocks = params["blocks"]
-        win = cache["k"].shape[2]
-        for t in range(cache["k"].shape[0]):
-            for r in ("1", "2"):
-                h, (h_s, c_s) = rglru_block(cfg, _at(blocks["r" + r], t), h)
-                cache["h" + r][t] = h_s
-                cache["conv" + r][t] = c_s
-            p = _at(blocks["attn"], t)
-            h, (k, v) = attn_block(cfg, p, h, positions=positions)
-            h = ffn_block(cfg, p, h)
-            cache["k"][t] = _last_window(k, win)
-            cache["v"][t] = _last_window(v, win)
-        if "h_tail" in cache:
-            for t in range(cache["h_tail"].shape[0]):
-                h, (h_s, c_s) = rglru_block(cfg, _at(params["tail"], t), h)
-                cache["h_tail"][t] = h_s
-                cache["conv_tail"][t] = c_s
-    else:
-        for l in range(cfg.num_layers):
-            p = layer_params(params, l)
-            h, (k, v) = attn_block(cfg, p, h, positions=positions)
-            h = ffn_block(cfg, p, h)
-            cache["k"][l, :, :S] = k
-            cache["v"][l, :, :S] = v
-
+    if cfg.family == "audio":
+        return _prefill_audio(params, cfg, batch, max_seq=max_seq,
+                              cache_dtype=cache_dtype)
+    h = _embed(params, cfg, batch)
+    B, S = h.shape[:2]
+    cache = init_cache(cfg, B, max_seq or S, cache_dtype, h.device)
+    positions = torch.arange(S, device=h.device)[None, :]
+    h = _run_layers(params, cfg, h, positions, cache)
     cache["pos"] = S
     return lm_head(cfg, params, h[:, -1:])[:, 0], cache
+
+
+def _prefill_audio(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+                   *, max_seq: int, cache_dtype) -> Tuple[torch.Tensor, Dict]:
+    """Whisper's `prefill` is the reference's: the encoder over
+    batch["frames"] and each decoder layer's cross K/V into xk/xv. It is
+    not a prompt pass: the decoder's self-attention cache starts empty at
+    pos 0 (generation starts from a BOS token) and the logits are zeros
+    (B, V) in the frames' dtype. max_seq defaults to batch["tokens"]'s
+    length."""
+    dev = params.device
+    frames = torch.as_tensor(batch["frames"], device=dev)
+    B = frames.shape[0]
+    S = torch.as_tensor(batch["tokens"]).shape[1]
+    enc_out = _encode(params, cfg, frames)
+    cache = init_cache(cfg, B, max_seq or S, cache_dtype, dev)
+    for l in range(cfg.num_layers):
+        cache["xk"][l], cache["xv"][l] = _cross_kv(
+            cfg, layer_params(params, l), enc_out)
+    return torch.zeros((B, cfg.vocab_size), dtype=frames.dtype,
+                       device=dev), cache
 
 
 def supports_ragged_decode(cfg: ModelConfig) -> bool:
@@ -363,7 +591,7 @@ def supports_ragged_decode(cfg: ModelConfig) -> bool:
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """Single-stream decode of every ported family. tokens: (B,) — the token
+    """Single-stream decode of every family. tokens: (B,) — the token
     generated at position cache['pos']; cache: the `prefill` /
     `init_cache` layout with an int "pos".
 
@@ -371,8 +599,11 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     step writes the cache's tensors IN PLACE (the new K/V at `pos`, or at
     ring slot pos % win for the hybrid; the recurrent and conv states of
     ssm and the hybrid); the returned dict shares them and carries pos + 1.
-    Dense attention is the decode kernel over keys [0, pos] (kv_len =
-    pos + 1). Returns (logits (B, V), cache)."""
+    Self-attention is the decode kernel over keys [0, pos] (kv_len =
+    pos + 1); each half of a pair writes its own slice of the (L/2, 2, ...)
+    cache. Audio adds, as the reference does, the position-0 sinusoid
+    whatever pos is, and cross-attends on the same kernel over the cached
+    encoder K/V. Returns (logits (B, V), cache)."""
     _check_ported(cfg)
     if cfg.family == "ssm":
         return _decode_ssm(params, cfg, tokens, cache)
@@ -381,20 +612,24 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     pos = int(cache["pos"])
     B = tokens.shape[0]
     dev = tokens.device
-    k_c, v_c = cache["k"], cache["v"]
     h = embed_tokens(cfg, params, tokens[:, None])          # (B, 1, D)
+    if cfg.family == "audio":
+        h = h + L.sinusoidal_positions(1, cfg.d_model, dev).to(h.dtype)
     rp = torch.full((1, 1), pos, dtype=torch.int64, device=dev)
     kv_len = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
-    for l in range(cfg.num_layers):
-        p = layer_params(params, l)
-        x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    for p, at in _attn_layers(params, cfg):
+        k_l, v_l = cache["k"][at], cache["v"][at]           # (B, T, K, hd)
+        x = _norm(cfg, p, h, "ln1")
         q, k, v = _project_qkv(cfg, p, x)
-        q = L.apply_rope(q, rp, cfg.rope_theta)
-        k = L.apply_rope(k, rp, cfg.rope_theta)
-        k_c[l, :, pos] = k[:, 0].to(k_c.dtype)
-        v_c[l, :, pos] = v[:, 0].to(v_c.dtype)
-        o = ops.decode_attention(q[:, 0], k_c[l], v_c[l], kv_len)
+        if cfg.family != "audio":
+            q = L.apply_rope(q, rp, cfg.rope_theta)
+            k = L.apply_rope(k, rp, cfg.rope_theta)
+        k_l[:, pos] = k[:, 0].to(k_l.dtype)
+        v_l[:, pos] = v[:, 0].to(v_l.dtype)
+        o = ops.decode_attention(q[:, 0], k_l, v_l, kv_len)
         h = h + o.reshape(B, 1, -1) @ p["wo"]
+        if "xk" in cache:
+            h = _cross_attn(cfg, p, h, cache["xk"][at], cache["xv"][at])
         h = ffn_block(cfg, p, h)
     logits = lm_head(cfg, params, h)
     return logits[:, 0], dict(cache, pos=pos + 1)

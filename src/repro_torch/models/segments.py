@@ -10,12 +10,13 @@ device, nothing is recomputed on resume).
 Operator sets (paper §5.1 / §6.5):
     dense:  qkv_proj | attn | o_proj | gate_up_proj | down_proj
     moe:    qkv_proj | attn | o_proj | gate | experts
-Boundary granularity is op / layer / block<k> / whole (Fig. 12). With
-``chunk_tokens > 0`` the prompt is split into chunks, each running all
-layers at its q_offset (Fig. 15); the `attn` operator is the flash-prefill
-kernel on the card. As in the reference, a chunk's B * Sc tokens form the
-MoE groups, so a chunked MoE prefill may drop other pairs than an
-unchunked one.
+A vlm runs the dense set; its patch embeddings replace the leading
+positions of chunk 0 (`start(..., vision_embeds=)`). Boundary granularity
+is op / layer / block<k> / whole (Fig. 12). With ``chunk_tokens > 0`` the
+prompt is split into chunks, each running all layers at its q_offset
+(Fig. 15); the `attn` operator is the flash-prefill kernel on the card. As
+in the reference, a chunk's B * Sc tokens form the MoE groups, so a chunked
+MoE prefill may drop other pairs than an unchunked one.
 
 Each segment records a CUDA event after its work (`PrefillTask.sync_token`)
 so the Execution Pool can bound how far the host runs ahead of the card.
@@ -34,8 +35,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
-from repro_torch.models.model import (_check_ported, _project_qkv,
-                                      embed_tokens, layer_params, lm_head)
+from repro_torch.models.model import (_check_ported, _merge_vision,
+                                      _project_qkv, embed_tokens,
+                                      layer_params, lm_head)
 
 State = Dict[str, Any]
 
@@ -44,14 +46,20 @@ MOE_OPS = ("qkv_proj", "attn", "o_proj", "gate", "experts")
 
 
 def op_names(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The operator set of a dense or uniform MoE stack; raises for the
-    other families (interleaved MoE pairs, and ssm and the recurrent hybrid,
-    which the reference's segmented executor does not wire either)."""
+    """The operator set of a dense, vlm (a dense stack) or uniform MoE
+    stack; raises for the other families (interleaved MoE pairs, ssm, the
+    recurrent hybrid and audio), which the reference's segmented executor
+    does not wire either."""
     _check_ported(cfg)
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"segmented executor: family {cfg.family!r} not wired")
-    return MOE_OPS if cfg.num_experts else DENSE_OPS
+    if cfg.num_experts:
+        if cfg.moe_layer_freq != 1:
+            raise NotImplementedError(
+                "segmented executor supports uniform MoE stacks (freq=1)")
+        return MOE_OPS
+    if cfg.family in ("dense", "vlm"):
+        return DENSE_OPS
+    raise NotImplementedError(
+        f"segmented executor: family {cfg.family!r} not wired")
 
 
 def mark(device: torch.device) -> Optional[torch.cuda.Event]:
@@ -236,7 +244,7 @@ class SegmentedPrefill:
 
     # --- lifecycle -------------------------------------------------------------
     def start(self, tokens, lens=None, prefix_len: int = 0, prefix_k=None,
-              prefix_v=None) -> PrefillTask:
+              prefix_v=None, *, vision_embeds=None) -> PrefillTask:
         """Begin a prefill of `tokens` (B, S), padded rows of true lengths
         `lens` (default S each). Allocates the task's (L, B, max_seq, K, hd)
         KV cache on the current stream.
@@ -245,11 +253,27 @@ class SegmentedPrefill:
         `prefix_v` (L, B, prefix_len, K, hd) seed the first positions of the
         cache (cast to `cache_dtype`, on the current stream) and the chunk
         loop starts at operator offset `prefix_len` — suffix-only compute.
-        Requires prefix_len < S: the last token's logits need a live pass."""
+        Requires prefix_len < S: the last token's logits need a live pass.
+
+        `vision_embeds` (B, P, D), a vlm's patch embeddings, stay in the
+        task's state and replace the first P positions of chunk 0's
+        embeddings, as in the reference; P may not exceed the first chunk.
+        A resume over a cached prefix recomputes no vision span, so the two
+        together raise (the reference never combines them)."""
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
         B, S = tokens.shape
         cfgc = self.cfg
         K, hd = cfgc.num_kv_heads, cfgc.resolved_head_dim
+        chunk = self.chunk_tokens or (S - prefix_len)
+        if vision_embeds is not None:
+            if prefix_len:
+                raise ValueError("prefix resumption over vision embeds is "
+                                 "not supported (recompute the vision span)")
+            vision_embeds = torch.as_tensor(vision_embeds, device=self.device)
+            if vision_embeds.shape[1] > min(chunk, S):
+                raise ValueError(
+                    f"{vision_embeds.shape[1]} patch embeddings do not fit "
+                    f"the first chunk of {min(chunk, S)} tokens")
         shape = (cfgc.num_layers, B, self.max_seq, K, hd)
         kc = torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
         vc = torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
@@ -270,7 +294,8 @@ class SegmentedPrefill:
             "h_full": torch.zeros((B, S, cfgc.d_model), dtype=torch.float32,
                                   device=self.device),
         }
-        chunk = self.chunk_tokens or (S - prefix_len)
+        if vision_embeds is not None:
+            state["vision_embeds"] = vision_embeds
         return PrefillTask(state=state, prompt_len=S, start_offset=prefix_len,
                            n_chunks=self.n_chunks(S, prefix_len), chunk=chunk,
                            total_segments=self.segments_for(S, prefix_len))
@@ -308,8 +333,10 @@ class SegmentedPrefill:
 
         st = task.state
         if within == 0:                                     # chunk begins
-            st = dict(st, h=embed_tokens(self.cfg, self.params,
-                                         st["tokens"][:, lo:hi]))
+            h = embed_tokens(self.cfg, self.params, st["tokens"][:, lo:hi])
+            if chunk_idx == 0 and "vision_embeds" in st:
+                h = _merge_vision(h, st["vision_embeds"])
+            st = dict(st, h=h)
         st = self._segments[group_idx](self.params, st, l0, lo)
         if within == spc - 1:                               # chunk ends
             st["h_full"][:, lo:hi] = st["h"].to(st["h_full"].dtype)

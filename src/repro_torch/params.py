@@ -4,11 +4,13 @@
 The module keeps the reference's key names and layout: ``embed``,
 ``final_norm``, ``unembed`` and a stacked ``layers`` group (``{ln1, wq, wk,
 wv, wo, ln2, wi, wd}``, ``router`` in an MoE stack, the Mamba2 leaves for
-ssm), or for the recurrent hybrid the nested ``blocks.{r1, r2, attn}`` and
-``tail`` groups, each leaf stacked with a leading layer axis, so
-``params["blocks"]["r1"]["w_x"]`` reads as it does in
-src/repro/models/model.py. The parameters are frozen: serving never builds
-an autograd graph.
+ssm, the LayerNorm biases, GELU MLP and ``*_x`` cross-attention leaves of
+Whisper's decoder beside its ``enc_layers``), or the nested groups
+``pairs.{dense, moe}`` of interleaved MoE pairs and ``blocks.{r1, r2,
+attn}`` and ``tail`` of the recurrent hybrid, each leaf stacked with a
+leading layer axis, so ``params["blocks"]["r1"]["w_x"]`` reads as it does
+in src/repro/models/model.py. The parameters are frozen: serving never
+builds an autograd graph.
 """
 from __future__ import annotations
 
@@ -50,6 +52,9 @@ class ModelParams(nn.Module):
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
@@ -72,6 +77,10 @@ def from_jax_params(np_tree: Mapping[str, Any], *, device="cuda",
         return torch.from_numpy(arr.copy()).to(device=dev, dtype=dtype)
 
     return ModelParams(conv(np_tree))
+
+
+# a slice of a stacked leaf above this many elements is drawn in parts
+_DRAW_ELEMENTS = 2 ** 30
 
 
 def _fan_in(shape) -> int:
@@ -107,20 +116,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     zero vectors (norm weights scale by 1 + w), then its ssm and RG-LRU
     inits. Drawn in f32 from `generator`, which must live on `device`;
     stacked leaves are drawn one layer at a time so a full-width model needs
-    no f32 copy of itself."""
+    no f32 copy of itself, and a layer slice above _DRAW_ELEMENTS (one
+    Llama4-Maverick MoE layer's experts, 10.7 G elements) one expert at a
+    time."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device} but device {dev}")
 
+    def fill(x: torch.Tensor, scale: float, whole: bool) -> None:
+        if x.dim() >= 3 and (whole or x.numel() > _DRAW_ELEMENTS):
+            for part in x:
+                fill(part, scale, False)
+            return
+        x.copy_(torch.randn(x.shape, generator=generator, device=dev,
+                            dtype=torch.float32).mul_(scale))
+
     def draw(shape) -> torch.Tensor:
-        scale = 1.0 / math.sqrt(max(_fan_in(shape), 1))
         if len(shape) == 1 or shape[-1] == 1:
             return torch.zeros(shape, dtype=dtype, device=dev)
         out = torch.empty(shape, dtype=dtype, device=dev)
-        parts = out if len(shape) >= 3 else out[None]
-        for part in parts:
-            part.copy_(torch.randn(part.shape, generator=generator,
-                                   device=dev, dtype=torch.float32) * scale)
+        fill(out, 1.0 / math.sqrt(max(_fan_in(shape), 1)), True)
         return out
 
     def make(shapes):
@@ -131,3 +146,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         return draw(shapes)
 
     return ModelParams(make(model_shapes(cfg)))
+
+
+def redraw_norms(params: ModelParams, seed: int) -> ModelParams:
+    """Redraw, in place, every LayerNorm weight (a leaf with a `<key>_b`
+    sibling) as 1 + 0.1 N(0,1) and every bias as 0.1 N(0,1), from a
+    generator seeded `seed` on the weights' device. `init_params` keeps the
+    reference's zero vectors, and the reference's LayerNorm scales by w (not
+    1 + w): a Whisper drawn that way outputs exactly zero, so a check that
+    must see it compute something redraws these first."""
+    gen = torch.Generator(device=params.device).manual_seed(seed)
+    leaves = dict(params.named_parameters())
+    for name, t in leaves.items():
+        key = name.rsplit(".", 1)[-1]
+        if name + "_b" in leaves:
+            base = 1.0
+        elif key.endswith("_b") or key in ("bi", "bd", "bq", "bk", "bv"):
+            base = 0.0
+        else:
+            continue
+        t.copy_(base + 0.1 * torch.randn(t.shape, generator=gen,
+                                         device=t.device))
+    return params

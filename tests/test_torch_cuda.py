@@ -49,6 +49,13 @@ PREFILL_CASES = [
     # and a resumed chunk at q_offset 160 whose window binds
     (1, 256, 256, 4, 1, 256, 0, None, True, 64),
     (1, 40, 300, 4, 1, 256, 160, 200, True, 64),
+    # Whisper's encoder (one query head per KV head, no mask, Sq = T off
+    # the 128-row tile grid) and its decoder's cross-attention in
+    # `forward` (24 queries over 300 encoder keys); Llama4's 5 query heads
+    # per KV head
+    (1, 300, 300, 4, 4, 64, 0, None, False, 0),
+    (2, 24, 300, 4, 4, 64, 0, None, False, 0),
+    (1, 200, 260, 10, 2, 128, 60, None, True, 0),
 ]
 
 # the tensor-core body of the prefill kernel (bf16, head_dim 64/128): the
@@ -70,6 +77,8 @@ DECODE_CASES = [
     (4, 256, 4, 2, 32, [1, 77, 256, 130]),
     (3, 64, 4, 2, 16, [0, 1, 64]),                # a row of length 0 -> 0
     (4, 300, 16, 1, 256, [1, 70, 300, 33]),       # hd 256 MQA ring decode
+    (2, 300, 4, 4, 64, [300, 300]),               # Whisper's cross-attention
+    (2, 300, 10, 2, 128, [1, 300]),               # Llama4's group 5
 ]
 
 VERIFY_CASES = [
@@ -819,3 +828,101 @@ def test_recurrent_prefill_and_decode_on_the_card_match_the_cpu(card, arch):
     if cfg.family == "hybrid":
         assert launched["flash_prefill_attention"] == 1
         assert launched["flash_decode_attention"] == 8
+
+
+# --- the remaining families on the card ---------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["whisper_large_v3", "internvl2_76b",
+                                  "llama4_maverick_400b"])
+def test_remaining_families_on_the_card_match_the_cpu(card, arch):
+    """The tiny Whisper (LayerNorms redrawn), InternVL2 and Llama4 configs
+    in f32: `forward` logits, `prefill` logits and every cache leaf, and 3
+    `decode_step` logits on the card against the CPU at 2e-4 (the port's
+    model tolerance); the card pass launches both kernels and no plain
+    version."""
+    import copy
+
+    from repro_torch.configs.base import get_tiny_config
+    from repro_torch.models.model import decode_step, forward, prefill
+    from repro_torch.params import init_params, redraw_norms
+
+    cfg = get_tiny_config(arch)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    if cfg.family == "audio":
+        redraw_norms(p_cpu, 1)
+    p_gpu = copy.deepcopy(p_cpu).to(card)
+    rng = np.random.default_rng(0)
+    S = 20
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, S + 3))}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (2, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    out = {}
+    for where, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        ops.reset_counts()
+        b = {k: torch.from_numpy(v).to(params.device)
+             for k, v in batch.items()}
+        fw = forward(params, cfg, b)
+        logits, cache = prefill(params, cfg,
+                                dict(b, tokens=b["tokens"][:, :S]),
+                                max_seq=S + 3, cache_dtype=torch.float32)
+        # a copy: the decode steps write the cache in place
+        leaves = {k: v.cpu().clone() for k, v in cache.items()
+                  if k != "pos"}
+        steps = [logits]
+        for i in range(3):
+            logits, cache = decode_step(params, cfg, b["tokens"][:, S + i],
+                                        cache)
+            steps.append(logits)
+        out[where] = (fw.cpu(), torch.stack(steps).cpu(), leaves)
+    launched = ops.counts()
+    for a, b in zip(out["cpu"][:2], out["cuda"][:2]):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+    for key, leaf in out["cpu"][2].items():
+        torch.testing.assert_close(out["cuda"][2][key], leaf, rtol=2e-4,
+                                   atol=2e-4)
+    assert launched["flash_prefill_attention"] > 0
+    assert launched["flash_decode_attention"] > 0
+    assert launched["chunked_prefill_attention_ref"] == 0
+    assert launched["decode_attention_ref"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vlm_segmented_prefill_on_the_card(card, dtype):
+    """The tiny InternVL2 prompt with patch embeddings in 3 chunks on the
+    card: within 2e-4 of the CPU in f32, and in both dtypes resumed
+    `torch.equal` after a suspension at every operator boundary of chunk 0
+    with another prefill in between."""
+    import copy
+
+    from repro_torch.configs.base import get_tiny_config
+    from repro_torch.models.segments import SegmentedPrefill
+    from repro_torch.params import init_params
+
+    cfg = get_tiny_config("internvl2_76b")
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(card).to(dtype)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 40))
+    ve = torch.from_numpy(rng.standard_normal(
+        (2, cfg.num_patches, cfg.d_model)).astype(np.float32))
+    ex = SegmentedPrefill(p_gpu, cfg, max_seq=40, chunk_tokens=16,
+                          cache_dtype=dtype)
+    want = ex.run_all(ex.start(toks, vision_embeds=ve.to(card, dtype)))
+    if dtype == torch.float32:
+        cpu = SegmentedPrefill(p_cpu, cfg, max_seq=40, chunk_tokens=16)
+        torch.testing.assert_close(
+            want.cpu(), cpu.run_all(cpu.start(toks, vision_embeds=ve)),
+            rtol=2e-4, atol=2e-4)
+    task = ex.start(toks, vision_embeds=ve.to(card, dtype))
+    for stop in range(1, ex._segments_per_chunk + 1):
+        while task.cursor < stop:
+            ex.step(task)
+        ex.run_all(ex.start(toks[:1, :12]))
+    got = ex.run_all(task)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -20,7 +20,10 @@ COPIED = [
     "core/tieredcache.py", "core/faults.py",
     "configs/base.py", "configs/llama3_8b.py", "configs/qwen3_30b_a3b.py",
     "configs/granite_moe_3b.py", "configs/mamba2_370m.py",
-    "configs/recurrentgemma_9b.py",
+    "configs/recurrentgemma_9b.py", "configs/whisper_large_v3.py",
+    "configs/internvl2_76b.py", "configs/llama4_maverick_400b.py",
+    "configs/llama3_2_1b.py", "configs/qwen2_1_5b.py",
+    "configs/qwen2_5_3b.py", "configs/minitron_4b.py",
 ]
 
 _IMPORT_ALL = """

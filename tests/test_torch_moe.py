@@ -40,7 +40,8 @@ from repro_torch.core import Request
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
-from repro_torch.models.segments import MOE_OPS, SegmentedPrefill, op_names
+from repro_torch.models.segments import (DENSE_OPS, MOE_OPS,
+                                         SegmentedPrefill, op_names)
 from repro_torch.params import from_jax_params, init_params
 
 ARCHS = ["qwen3_30b_a3b", "granite_moe_3b"]
@@ -321,18 +322,17 @@ def test_params_shapes_and_fan_in(moe):
                                   "recurrentgemma_9b", "whisper_large_v3",
                                   "internvl2_76b"])
 def test_other_families_are_refused(arch):
-    """Interleaved MoE pairs, audio and vlm are not ported: their shapes and
-    operators raise. ssm and the recurrent hybrid are ported as model
-    functions: their shapes are the reference's, and like the reference's
-    segmented executor (src/repro/models/segments.py `op_names`) the port
-    has no operator set for them."""
+    """Every family is ported as model functions, with the reference's
+    shapes; like the reference's segmented executor
+    (src/repro/models/segments.py `op_names`), the port refuses an operator
+    set to interleaved MoE pairs, ssm, the recurrent hybrid and audio, and
+    gives vlm the dense set."""
     jcfg = jax_tiny_config(arch)
     cfg = ModelConfig(**dataclasses.asdict(jcfg))
-    if cfg.family in ("ssm", "hybrid"):
-        assert TM.model_shapes(cfg) == JM.model_shapes(jcfg)
-    else:
-        with pytest.raises(NotImplementedError):
-            TM.model_shapes(cfg)
+    assert TM.model_shapes(cfg) == JM.model_shapes(jcfg)
+    if cfg.family == "vlm":
+        assert op_names(cfg) == DENSE_OPS
+        return
     with pytest.raises(NotImplementedError):
         op_names(cfg)
 
