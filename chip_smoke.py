@@ -175,6 +175,36 @@ Phases; the first failure exits non-zero and prints no result:
     K20`, InternVL2's `chunk512@3584 H64 K8` and `B4ragged H40 K8`
     (Llama4's heads); phase 3 also runs the tiny Whisper, InternVL2 and
     Llama4 configs card vs CPU (2e-4).
+14. training at full width: Llama3.2-1B whole (16 layers, d 2048, 32 heads
+    of 64 on 8 KV heads, tied head) drawn from seed 0 with bf16 parameters
+    (trainable) and f32 AdamW state, `remat="full"`, sequence 4096 at batch
+    2 (the reference's train_4k batch of 256 cut to one card; the reference
+    has no gradient accumulation), synthetic Zipf batches
+    (`training/data.py`), AdamW lr 3e-4 with one warmup step, 8 steps
+    through `make_train_step`. Prints each step's loss (the first must lie
+    within 1 of ln(vocab), the last below the first), the median
+    synchronised step time, tokens per second and the peak memory, and a
+    profiler breakdown of one step (the attention forward kernel, the
+    backward's bmm, the GEMMs, AdamW, the log-softmax, any select_backward
+    / fill_, the idle share). The step must launch `flash_prefill_attention`
+    32 times (16 layers, each again under remat), all on the tensor-core
+    body, the attention backward 16 times and the plain prefill version
+    never. Layer 0's attention inputs of step 0 go through `FlashAttention`
+    on the card against the plain versions on the CPU in f32: out against
+    the plain forward, and dq, dk, dv against the plain backward on the
+    same inputs (the kernel's out), within phase 2's bf16 limit; dq, dk, dv
+    against the plain forward and backward within 4 * 2^-7 * max|grad|
+    (the plain forward's f32 out moves D = rowsum(dout * out) by more than
+    an element near 0 can hold). The forward kernel, its
+    plain version and SDPA are timed at the training shape
+    (`train4096 hd64 H32 K8`, causal, B 2), and so are the plain attention
+    backward and SDPA's backward. Then, in a process of its own under
+    `torch.use_deterministic_algorithms` with CUBLAS_WORKSPACE_CONFIG set
+    before cuBLAS starts: one step's gradients at remat none, dots and full
+    within phase 2's bf16 limit of each other, with the memory each needs
+    ordered none > dots > full; and the reference's restart equivalence at
+    full width: 4 steps straight against 2 steps, `save`, `restore` and 2
+    steps, every parameter and m, v `torch.equal`.
 
 The line before the last holds the kernels' record: each kernel's launches
 by path (each path's counters zeroed just before it ran) and their sum, the
@@ -190,6 +220,7 @@ import copy
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -293,6 +324,9 @@ PHASE13_ROWS = {"flash_prefill_attention": [r[0] for r in PHASE13_PREFILL],
                 "flash_decode_attention": [r[0] for r in PHASE13_DECODE]}
 # teacher-forced decode checks of phase 12: the steps checked per prompt
 RECURRENT_CHECKS = {4096: (0, 1, 7, 31), 2040: (0, 7, 8, 15)}
+# phase 14: Llama3.2-1B at train_4k's sequence, the batch cut to one card
+TRAIN = dict(arch="llama3_2_1b", seq=4096, batch=2, steps=8, lr=3e-4)
+TRAIN_SHAPE = "train4096 hd64 H32 K8"
 
 
 def fail(msg: str) -> None:
@@ -2004,6 +2038,295 @@ def families_phase(torch, np, ops, port, check):
     return by_path
 
 
+def train_setup(torch, remat="full"):
+    """Phase 14's model, AdamW state, train step and data: Llama3.2-1B at
+    published width, bf16 trainable parameters from seed 0, f32 m and v."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.params import init_params
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig, init_state
+    from repro_torch.training.train import make_train_step
+    cfg = get_config(TRAIN["arch"])
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", dtype=torch.bfloat16, trainable=True)
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=1,
+                          total_steps=TRAIN["steps"])
+    data = DataConfig(seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
+                      vocab_size=cfg.vocab_size)
+    return (cfg, params, init_state(params),
+            make_train_step(cfg, opt_cfg, remat=remat), opt_cfg, data)
+
+
+def attention_grads(torch, q, k, v, dout):
+    """out, dq, dk, dv of `FlashAttention` (causal) on q, k, v's device."""
+    from repro_torch.models.layers import blocked_attention
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = blocked_attention(*leaves)
+    out.backward(dout)
+    return [out.detach()] + [x.grad for x in leaves]
+
+
+def train_attention(torch, ops, check, kept) -> dict:
+    """Layer 0's attention inputs of the first training step through
+    `FlashAttention` on the card against the plain forward and backward on
+    the CPU in f32, then the times at that shape: the kernel, its plain
+    version and SDPA; the plain backward and SDPA's backward. Returns the
+    kernel's record at the training shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill_attention
+    if len(kept) != 1:
+        fail(f"phase 14 kept {len(kept)} attention calls of layer 0")
+    _, (q, k, v), kw = kept[0]
+    if kw.get("q_offset", 0) != 0 or kw.get("kv_len") is not None \
+            or not kw.get("causal", True):
+        fail(f"phase 14: layer 0's attention ran with {kw}")
+    q, k, v = (x.detach() for x in (q, k, v))
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda")
+                       .manual_seed(14), device="cuda").to(q.dtype)
+    got = attention_grads(torch, q, k, v, dout)
+    t0 = time.monotonic()
+    cpu = [x.float().cpu() for x in (q, k, v, dout)]
+    want = attention_grads(torch, *cpu)
+    # the backward on the same inputs as the card's: the kernel's bf16 out
+    same = ref.flash_attention_bwd_ref(*cpu[:3], got[0].float().cpu(), cpu[3])
+    print(f"  layer 0 attention {tuple(q.shape)} over {tuple(k.shape)}: "
+          f"the CPU's f32 plain forward and backwards took "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    errs = {"out": check("train attention out: kernel vs plain",
+                         torch.bfloat16, got[0].float(), want[0].to("cuda"))}
+    for name, g, w, w_same in zip(("dq", "dk", "dv"), got[1:], want[1:],
+                                  same):
+        errs[name] = check(f"train attention {name}: card vs plain, same "
+                           "inputs", torch.bfloat16, g.float(),
+                           w_same.to("cuda"))
+        # end to end the backward's D = rowsum(dout * out) takes the
+        # kernel's bf16 out where the plain forward's is f32: an absolute
+        # error that an element near 0 cannot hold within one bf16 step of
+        # itself, so this comparison takes phase 9's bound
+        bf16_bound(g, w.to("cuda"), f"train attention {name}: card vs "
+                   "plain forward + backward in f32")
+    del got, want, same
+
+    es = q.element_size()
+    work = prefill_work(B, S, H, K, hd, 0, S, es)
+    row = {"shape": TRAIN_SHAPE, "max_abs_err": errs["out"]}
+    row["bound_ms"], row["bound_by"] = bound(*work)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row["ms"] = cuda_ms(torch, lambda: flash_prefill_attention(q, k, v, 0,
+                                                               None))
+    row["plain_ms"] = cuda_ms(torch, lambda: ref.chunked_prefill_attention_ref(
+        q, k, v), iters=3, warmup=1)
+    row["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    print(f"  flash_prefill_attention {TRAIN_SHAPE}: {json.dumps(row)}; "
+          f"share of the bound {row['bound_ms'] / row['ms']:.4f}",
+          flush=True)
+
+    # the backward: 5 products (s again, dp, dv, dq, dk) of 2*hd operations
+    # per visible pair and query head, on bf16 tensor cores; bytes: q, k, v,
+    # out, dout read and dq, dk, dv written once
+    out = flash_prefill_attention(q, k, v, 0, None)
+    pairs = work[0] / (4.0 * hd * H)
+    bwd = {"max_abs_err": max(errs[n] for n in ("dq", "dk", "dv"))}
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        10.0 * hd * H * pairs, es * B * S * hd * (4 * H + 4 * K))
+    bwd["plain_ms"] = cuda_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, dout), iters=3, warmup=1)
+    leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+    o_sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                            enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    bwd["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        o_sdpa, leaves, dout_t, retain_graph=True))
+    print(f"  attention backward per layer (not a TPU kernel: plain torch, "
+          f"f32) {TRAIN_SHAPE}: {json.dumps(bwd)}; share of the bound "
+          f"{bwd['bound_ms'] / bwd['plain_ms']:.4f}", flush=True)
+    row["backward_plain"] = bwd
+    return row
+
+
+def train_phase(torch, np, ops, kcounts, check):
+    """Phase 14: Llama3.2-1B trained at published width on the card (see the
+    module docstring). Returns (the prefill kernel's launches on the path,
+    its record at the training shape)."""
+    from torch.profiler import record_function
+
+    from repro_torch.training.data import data_iterator
+    from repro_torch.training.optimizer import apply_updates
+    from repro_torch.training.train import grads_of, loss_fn
+    gib = 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, state, step, opt_cfg, data = train_setup(torch)
+    n = sum(p.numel() for p in params.parameters())
+    steps, tokens = TRAIN["steps"], TRAIN["batch"] * TRAIN["seq"]
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}; {n / 1e9:.3f} B "
+          f"params in bf16, AdamW m and v in f32; seq {TRAIN['seq']}, batch "
+          f"{TRAIN['batch']} (train_4k's 256 cut to one card), remat full, "
+          f"lr {TRAIN['lr']}, {steps} steps; memory allocated "
+          f"{torch.cuda.memory_allocated() / gib:.2f} GiB", flush=True)
+    it = data_iterator(data)
+    losses, times, kept = [], [], []
+    ops.reset_counts()
+    with kernel_calls(ops, kept, lambda name, i: i == 0):
+        for i in range(steps):
+            batch = next(it)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            params, state, met = step(params, state, batch)
+            losses.append(met["loss"].item())
+            times.append(time.monotonic() - t0)
+            print(f"  step {i}: loss {losses[-1]:.4f} grad_norm "
+                  f"{float(met['grad_norm']):.4f} lr {float(met['lr']):.3e} "
+                  f"{times[-1] * 1e3:.1f} ms", flush=True)
+    counts = {**ops.counts(), **kcounts.read(["flash_attention_bwd_ref"])}
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    print(f"  median step {med * 1e3:.1f} ms (steps 1-{steps - 1}, "
+          f"synchronised), {tokens / med:.0f} tokens/s, peak memory "
+          f"allocated {peak / gib:.2f} GiB", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 14: non-finite loss {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"phase 14: first loss {losses[0]:.4f} not near "
+             f"ln({cfg.vocab_size}) = {math.log(cfg.vocab_size):.4f}")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 14: the loss did not fall: {losses}")
+    per_step = 2 * cfg.num_layers * steps       # forward + remat recompute
+    print(f"  launches {json.dumps(counts)}", flush=True)
+    want = {"flash_prefill_attention": per_step, "flash_prefill_wgmma":
+            per_step, "chunked_prefill_attention_ref": 0,
+            "flash_attention_bwd_ref": cfg.num_layers * steps}
+    for name, c in want.items():
+        if counts[name] != c:
+            fail(f"phase 14: {name} ran {counts[name]} times, not {c}")
+
+    row = train_attention(torch, ops, check, kept)
+    del kept
+
+    def one_step():
+        loss = loss_fn(params, cfg, batch, remat="full")
+        grads = grads_of(loss, params)
+        with record_function("adamw"):
+            apply_updates(opt_cfg, params, grads, state)
+    breakdown(torch, "one train step (remat full)", one_step, top=10,
+              cpu_ops=("FlashAttention", "FlashAttentionBackward",
+                       "aten::bmm", "aten::mm", "adamw",
+                       "aten::_log_softmax",
+                       "aten::_log_softmax_backward_data",
+                       "aten::select_backward", "aten::fill_"))
+    del params, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # remat and restart under deterministic algorithms, in a process whose
+    # cuBLAS starts with CUBLAS_WORKSPACE_CONFIG set
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-determinism"],
+        env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+        capture_output=True, text=True, timeout=900)
+    print(out.stdout, end="", flush=True)
+    if out.returncode != 0:
+        fail(f"phase 14 determinism checks (rc {out.returncode}): "
+             f"{out.stderr[-4000:]}")
+    print(f"  determinism checks took {time.monotonic() - t0:.1f} s",
+          flush=True)
+    return {"train (phase 14)": counts["flash_prefill_attention"]}, row
+
+
+def train_determinism(torch) -> None:
+    """Phase 14's checks that need deterministic kernels (run by phase 14
+    in a process of its own): the remat policies' gradients and memory, and
+    the bit-exact restart through a checkpoint."""
+    import shutil
+
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import data_iterator, make_batch
+    from repro_torch.training.train import grads_of, loss_fn
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gib = 2 ** 30
+    atol, rtol = TOL["torch.bfloat16"]
+
+    cfg, params, state, _, _, data = train_setup(torch)
+    batch = make_batch(data, 0)
+    grads, used = {}, {}
+    for remat in ("none", "dots", "full"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads[remat] = grads_of(loss_fn(params, cfg, batch, remat=remat),
+                                params)
+        torch.cuda.synchronize()
+        used[remat] = torch.cuda.max_memory_allocated() - base
+        print(f"  remat {remat}: one step's forward and backward peak "
+              f"{used[remat] / gib:.2f} GiB above the "
+              f"{base / gib:.2f} GiB held before it", flush=True)
+    for remat in ("dots", "full"):
+        equal, worst = 0, 0.0
+        for key, want in grads["none"].items():
+            got = grads[remat][key]
+            equal += torch.equal(got, want)
+            diff = (got.float() - want.float()).abs()
+            worst = max(worst, (diff / (atol + rtol * want.float().abs()))
+                        .max().item())
+        print(f"  grads at remat {remat} vs none: {equal} of "
+              f"{len(grads['none'])} leaves torch.equal, worst/limit "
+              f"{worst:.4f}", flush=True)
+        if worst > 1.0:
+            fail(f"remat {remat}: a gradient element is {worst:.3f} times "
+                 f"its bf16 limit")
+    if not used["none"] > used["dots"] > used["full"]:
+        fail(f"remat memory not ordered none > dots > full: {used}")
+    del grads, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(params, state, step, start, n):
+        it = data_iterator(data, start_step=start)
+        for _ in range(n):
+            params, state, _ = step(params, state, next(it))
+        return params, state
+
+    t0 = time.monotonic()
+    _, p_full, s_full, step, _, _ = train_setup(torch)
+    p_full, s_full = run(p_full, s_full, step, 0, 4)
+    _, params, state, step, _, _ = train_setup(torch)
+    params, state = run(params, state, step, 0, 2)
+    directory = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    t1 = time.monotonic()
+    ckpt.save(str(directory), 2, {"params": params, "opt_state": state})
+    t2 = time.monotonic()
+    back = ckpt.restore(str(directory), 2, {"params": params,
+                                            "opt_state": state})
+    torch.cuda.synchronize()
+    t3 = time.monotonic()
+    shutil.rmtree(directory, ignore_errors=True)
+    del params, state
+    params, state = run(back["params"], back["opt_state"], step, 2, 2)
+    torch.cuda.synchronize()
+    pairs = [(p_full.leaves(), params.leaves()), (s_full.m, state.m),
+             (s_full.v, state.v)]
+    equal = sum(torch.equal(a[k], b[k]) for a, b in pairs for k in a)
+    total = sum(len(a) for a, _ in pairs)
+    print(f"  restart: 4 steps straight vs 2 + save ({t2 - t1:.1f} s) + "
+          f"restore ({t3 - t2:.1f} s) + 2, {equal} of {total} leaves "
+          f"(params, m, v) torch.equal, step {int(state.step)}; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    if equal != total or int(state.step) != 4:
+        fail(f"restart: {total - equal} of {total} leaves differ from the "
+             f"uninterrupted run")
+
+
 def port_request(n):
     from repro_torch.core import Request
     return Request(num_tokens=n, slo=600.0, arrival=time.monotonic())
@@ -2015,6 +2338,8 @@ def main() -> None:
                     help="stop after the model phase (no result line)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v resource usage")
+    ap.add_argument("--train-determinism", action="store_true",
+                    help=argparse.SUPPRESS)       # phase 14's own process
     args = ap.parse_args()
 
     import torch
@@ -2040,6 +2365,9 @@ def main() -> None:
         from repro_torch.serving import decode_instance as port
     except ImportError as exc:
         fail(f"the port is not importable from {ROOT / 'src'}: {exc}")
+    if args.train_determinism:
+        train_determinism(torch)
+        return
     import numpy as np
     import torch.nn.functional as F
 
@@ -2663,6 +2991,13 @@ def main() -> None:
     fam_counts = families_phase(torch, np, ops, port, check)
     print(f"phase 13 took {time.monotonic() - t0:.1f} s", flush=True)
 
+    # --- 14. training at full width ---------------------------------------------
+    phase("14. training: Llama3.2-1B, published width, bf16 params, f32 "
+          "AdamW state, seq 4096, batch 2, remat full")
+    t0 = time.monotonic()
+    train_counts, train_row = train_phase(torch, np, ops, kcounts, check)
+    print(f"phase 14 took {time.monotonic() - t0:.1f} s", flush=True)
+
     kernels = []
     for name, route, src, replaces, main in (
             ("flash_prefill_attention", "cuda",
@@ -2688,6 +3023,8 @@ def main() -> None:
         for path, c in {**rec_counts, **fam_counts}.items():
             if name in c:
                 by_path[path] = c[name]
+        if name == "flash_prefill_attention":
+            by_path.update(train_counts)
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         entry = {"name": name, "route": route, "source": src,
@@ -2705,6 +3042,8 @@ def main() -> None:
             entry["phase13"] = {label: {k: record[f"{name} {label}"][k]
                                         for k in keys}
                                 for label in PHASE13_ROWS[name]}
+        if name == "flash_prefill_attention":    # phase 14's training shape
+            entry["train"] = train_row
         kernels.append(entry)
     print(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
     print(smi.stdout.strip().splitlines()[0])

@@ -6,8 +6,11 @@ main path on the card never reached them.
 
 Counterparts: `chunked_prefill_attention_ref` and `decode_attention_ref` of
 src/repro/kernels/ref.py, `naive_attention` of src/repro/models/layers.py,
-and `verify_attention_ref`, the reference's own non-Pallas verify path
-(src/repro/kernels/ops.py:87-88).
+`verify_attention_ref`, the reference's own non-Pallas verify path
+(src/repro/kernels/ops.py:87-88), and `flash_attention_bwd_ref`, the
+backward of the reference's `blocked_attention` (its `_flash_bwd`,
+src/repro/models/layers.py:184-217), which no kernel replaces: the TPU
+kernel has no backward.
 """
 from __future__ import annotations
 
@@ -133,3 +136,94 @@ def naive_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkqst,btkh->bskqh", probs.to(v.dtype), v)
     return out.reshape(B, S, H, hd)
+
+
+def _key_blocks(T: int, block: int):
+    """[start, end) of each block of `block` keys; the last may be short
+    (the reference pads it with zero keys that its mask removes)."""
+    return [(t, min(t + block, T)) for t in range(0, T, block)]
+
+
+def _row_lse(qg, k, mask, scale: float, block: int) -> torch.Tensor:
+    """Each query row's log-sum-exp over its visible keys, formed as the
+    reference's `_flash_fwd_impl` forms it (src/repro/models/layers.py:
+    135-168): an online max and sum over the key blocks, then m + log(l),
+    and +inf for a row with no visible key. qg: (B, K, Q*S, hd) f32; k:
+    (B, T, K, hd); mask: (B or 1, S, T). Returns (B, K, Q*S, 1)."""
+    B, K, QS, _ = qg.shape
+    S = mask.shape[1]
+    m = torch.full((B, K, QS, 1), float("-inf"), device=qg.device)
+    l = torch.zeros((B, K, QS, 1), device=qg.device)
+    for t0, t1 in _key_blocks(k.shape[1], block):
+        s = (qg @ k[:, t0:t1].float().permute(0, 2, 3, 1)) * scale
+        s.view(B, K, -1, S, t1 - t0).masked_fill_(
+            ~mask[:, None, None, :, t0:t1], float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        # exp(-inf - m_safe) is 0: the masked scores drop out of the sum
+        l = l * alpha + s.sub_(m_safe).exp_().sum(dim=-1, keepdim=True)
+        m = m_new
+        del s
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    return torch.where(l == 0.0, float("inf"),
+                       m_safe + torch.log(torch.clamp(l, min=1e-30)))
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,            # (B, S, H, hd)
+    k: torch.Tensor,            # (B, T, K, hd)
+    v: torch.Tensor,            # (B, T, K, hd)
+    out: torch.Tensor,          # (B, S, H, hd), the forward's output
+    dout: torch.Tensor,         # (B, S, H, hd)
+    *,
+    q_offset=0,                 # absolute position of q[0]; int or (B,)
+    kv_len=None,                # valid keys; int or (B,)
+    causal: bool = True,
+    local_window: int = 0,
+    block: int = 1024,
+):
+    """Gradients (dq, dk, dv) of attention, in the dtypes of q, k and v:
+    the reference's flash backward (`_flash_bwd`), in f32 over blocks of
+    `block` keys. Each row's log-sum-exp is formed first by one sweep over
+    the blocks (`_row_lse`; the kernel that computed `out` keeps none), then
+    per block p = exp(s - lse) under the mask recomputes the exact
+    probabilities, and dv = p^T dout, dp = dout v^T, ds = p (dp - D) with
+    D = rowsum(dout * out), dq += ds k, dk = ds^T q (scaled by 1/sqrt(hd)).
+    Every (query, key) pair of a block is computed, visible or not, as in
+    the reference. No block state is kept past its own step."""
+    counts.bump("flash_attention_bwd_ref")
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    Q = H // K
+    scale = 1.0 / math.sqrt(hd)
+    mask = _mask(S, T, q_offset, T if kv_len is None else kv_len, causal,
+                 local_window, q.device)
+
+    def grouped(x):             # (B, S, H, hd) -> (B, K, Q*S, hd) f32
+        return x.float().reshape(B, S, K, Q, hd).permute(0, 2, 3, 1, 4) \
+            .reshape(B, K, Q * S, hd)
+
+    qg, og, dog = grouped(q), grouped(out), grouped(dout)
+    lse = _row_lse(qg, k, mask, scale, block)
+    lse_safe = torch.where(torch.isfinite(lse), lse, 0.0)
+    d_row = (dog * og).sum(dim=-1, keepdim=True)            # (B,K,QS,1)
+    del og
+    dq = torch.zeros_like(qg)
+    dk, dv = [], []
+    for t0, t1 in _key_blocks(T, block):
+        kc = k[:, t0:t1].float().transpose(1, 2)            # (B,K,blk,hd)
+        vc = v[:, t0:t1].float().transpose(1, 2)
+        p = (qg @ kc.transpose(-1, -2)).mul_(scale).sub_(lse_safe).exp_()
+        p.view(B, K, Q, S, t1 - t0).masked_fill_(
+            ~mask[:, None, None, :, t0:t1], 0.0)            # exact probs
+        dv.append((p.transpose(-1, -2) @ dog).to(v.dtype))
+        ds = (dog @ vc.transpose(-1, -2)).sub_(d_row).mul_(p)
+        del p
+        dq += (ds @ kc) * scale
+        dk.append(((ds.transpose(-1, -2) @ qg) * scale).to(k.dtype))
+        del ds
+    dq = dq.reshape(B, K, Q, S, hd).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    return (dq.to(q.dtype),
+            torch.cat(dk, dim=2).transpose(1, 2).contiguous(),
+            torch.cat(dv, dim=2).transpose(1, 2).contiguous())

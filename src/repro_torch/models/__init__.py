@@ -1,7 +1,9 @@
-"""The model families (dense, uniform MoE, ssm, the recurrent hybrid): the
-model functions, the decode steps and the operator-segmented prefill."""
-from repro_torch.models.model import (cache_shapes, decode_step, init_cache,
-                                      model_shapes, prefill)
+"""The model families (dense, MoE, vlm, ssm, the recurrent hybrid, audio):
+the model functions, the training forward, the decode steps and the
+operator-segmented prefill."""
+from repro_torch.models.model import (REMAT_POLICIES, cache_shapes,
+                                      decode_step, forward, model_shapes,
+                                      prefill)
 
-__all__ = ["cache_shapes", "decode_step", "init_cache", "model_shapes",
-           "prefill"]
+__all__ = ["REMAT_POLICIES", "cache_shapes", "decode_step", "forward",
+           "model_shapes", "prefill"]

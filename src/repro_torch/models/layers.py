@@ -1,7 +1,8 @@
 """Model building blocks of the ported families: RMSNorm and LayerNorm,
 split-half RoPE and Whisper's sinusoidal positions, SwiGLU and the GELU
-MLP, the top-k MoE FFN, the reference attention, and the recurrent layers
-(the depthwise causal conv, RG-LRU and Mamba2's chunked SSD).
+MLP, the top-k MoE FFN, the reference attention and the differentiable
+`blocked_attention`, and the recurrent layers (the depthwise causal conv,
+RG-LRU and Mamba2's chunked SSD).
 
 Counterpart of src/repro/models/layers.py (the ported families' part of
 it). Plain functions on tensors; the large matrix products are
@@ -18,12 +19,14 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ref import naive_attention
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flash_attention_bwd_ref, naive_attention
 
 __all__ = ["rms_norm", "layer_norm", "rope_freqs", "apply_rope",
            "sinusoidal_positions", "swiglu", "gelu_mlp", "moe_router",
-           "moe_apply", "moe_ffn", "naive_attention", "causal_conv1d",
-           "rglru", "rglru_step", "ssd_chunked", "ssd_step"]
+           "moe_apply", "moe_ffn", "naive_attention", "FlashAttention",
+           "blocked_attention", "causal_conv1d", "rglru", "rglru_step",
+           "ssd_chunked", "ssd_step"]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -75,6 +78,43 @@ def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the reference's flash custom VJP (`_flash`,
+    src/repro/models/layers.py:171-219). The forward is
+    `ops.prefill_attention`: the CUDA prefill kernel for a CUDA tensor, its
+    plain version on the CPU. It saves q, k, v and the output, O(S * hd)
+    per head. The backward is `flash_attention_bwd_ref`, the reference's
+    blockwise algorithm in f32 torch ops, which recomputes the probabilities
+    from q, k and each row's log-sum-exp; it returns dq, dk, dv in the
+    inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_len, causal, local_window, block):
+        out = ops.prefill_attention(q, k, v, q_offset=q_offset, kv_len=kv_len,
+                                    causal=causal, local_window=local_window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = dict(q_offset=q_offset, kv_len=kv_len, causal=causal,
+                        local_window=local_window, block=block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, dout, **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, q_offset=0, local_window: int = 0,
+                      kv_len=None, block: int = 1024) -> torch.Tensor:
+    """The reference's `blocked_attention` (layers.py:222-253): q (B, S, H,
+    hd) over k/v (B, T, K, hd) -> (B, S, H, hd) in q's dtype, with a
+    backward of O(S * block) memory. `FlashAttention` with q_offset and
+    kv_len as run-time values (training passes 0 and T)."""
+    return FlashAttention.apply(q, k, v, q_offset, kv_len, causal,
+                                local_window, block)
 
 
 def gate_up(x: torch.Tensor, w_in: torch.Tensor) -> torch.Tensor:

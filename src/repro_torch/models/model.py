@@ -13,7 +13,10 @@ bidirectional encoder and a decoder that cross-attends to it). The
 reference scans a jitted body over stacked layer parameters; here the
 layers are a Python loop of eager PyTorch ops. Attention goes through
 `kernels.ops`, which runs the CUDA prefill, decode and verify kernels on
-the card and the plain versions on the CPU.
+the card and the plain versions on the CPU; where autograd needs its
+backward (trainable parameters under grad), through `layers.FlashAttention`,
+whose forward is the same prefill kernel. `forward` is the training
+forward too, with the reference's remat policies.
 
 Serving (`SegmentedPrefill`, the ragged decode step, speculation) takes the
 dense, vlm and uniform MoE stacks only, as in the reference; the pairs,
@@ -21,10 +24,13 @@ ssm, the hybrid and audio are served by `prefill` and `decode_step`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, _expanded_pattern
@@ -255,6 +261,18 @@ def _merge_vision(h: torch.Tensor, vision_embeds: torch.Tensor
     return torch.cat([vision_embeds.to(h.dtype), h[:, P:]], dim=1)
 
 
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               **kw) -> torch.Tensor:
+    """Whole-sequence attention: `FlashAttention` where autograd will ask
+    for its backward (grad enabled and an input requiring grad), else the
+    prefill kernel called directly, so serving launches the same kernel and
+    builds no graph."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return L.blocked_attention(q, k, v, **kw)
+    return ops.prefill_attention(q, k, v, **kw)
+
+
 def attn_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                h: torch.Tensor, *, positions: torch.Tensor,
                use_rope: bool = True, causal: bool = True):
@@ -268,8 +286,7 @@ def attn_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     if use_rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = ops.prefill_attention(q, k, v, causal=causal,
-                              local_window=cfg.local_window)
+    o = _attention(q, k, v, causal=causal, local_window=cfg.local_window)
     return h + o.reshape(h.shape[0], h.shape[1], -1) @ p["wo"], (k, v)
 
 
@@ -296,7 +313,7 @@ def _cross_attn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     if S == 1:
         o = ops.decode_attention(q[:, 0], xk, xv, xk.shape[1])
     else:
-        o = ops.prefill_attention(q, xk, xv, causal=False)
+        o = _attention(q, xk, xv, causal=False)
     return h + o.reshape(B, S, -1) @ p["wo_x"]
 
 
@@ -356,18 +373,99 @@ def ssm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """`dots` keeps the weight products: `x @ w` reaches the dispatcher as
+    an mm, with no batch dimension as in
+    `checkpoint_dots_with_no_batch_dims`; attention, the experts' bmm and
+    the elementwise work are recomputed."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(policy: str):
+    """The reference's `_remat` (src/repro/models/model.py:423-431) as a
+    caller of one scanned body: `call(fn, *args)` runs fn as is ("none"),
+    under `torch.utils.checkpoint`, which keeps only the body's inputs and
+    recomputes everything else in the backward ("full"), or which also
+    keeps the weight products ("dots"). Without grad, fn runs as is."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat {policy!r} not in {REMAT_POLICIES}")
+
+    def call(fn, *args):
+        if policy == "none" or not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {}
+        if policy == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return call
+
+
+class _Unbound(dict):
+    """Parameters whose stacked leaves are tuples of per-layer slices, which
+    `_at` indexes as it indexes a stacked leaf."""
+    device: torch.device
+
+
+def _unbound(params: Params, cfg: ModelConfig) -> _Unbound:
+    """`params` with every stacked leaf sliced once by `torch.unbind`: the
+    backward then stacks each leaf's gradient once, where a slice `v[l]` per
+    layer scatters every layer's into a zeroed copy of the whole stack."""
+    def unbind(group):
+        return {k: torch.unbind(v) if isinstance(v, torch.Tensor)
+                else unbind(v) for k, v in group.items()}
+    out = _Unbound({k: unbind(params[k]) if isinstance(shape, dict)
+                    else params[k] for k, shape in model_shapes(cfg).items()})
+    out.device = params.device
+    return out
+
+
+def _attn_ffn(cfg: ModelConfig, positions: torch.Tensor,
+              p: Dict[str, torch.Tensor], h: torch.Tensor):
+    """One attention layer and its FFN: (h, (k, v))."""
+    h, kv = attn_block(cfg, p, h, positions=positions)
+    return ffn_block(cfg, p, h), kv
+
+
+def _pair(cfg: ModelConfig, positions: torch.Tensor, p_dense, p_moe,
+          h: torch.Tensor):
+    """A (dense, MoE) pair: (h, ((k, v) dense, (k, v) MoE))."""
+    h, kv_dense = _attn_ffn(cfg, positions, p_dense, h)
+    h, kv_moe = _attn_ffn(cfg, positions, p_moe, h)
+    return h, (kv_dense, kv_moe)
+
+
+def _triple(cfg: ModelConfig, positions: torch.Tensor, p_r1, p_r2, p_attn,
+            h: torch.Tensor):
+    """A hybrid (rglru, rglru, attn) triple: (h, (r1 states, r2 states,
+    (k, v)))."""
+    h, s1 = rglru_block(cfg, p_r1, h)
+    h, s2 = rglru_block(cfg, p_r2, h)
+    h, kv = _attn_ffn(cfg, positions, p_attn, h)
+    return h, (s1, s2, kv)
+
+
 def _run_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                 positions: torch.Tensor,
-                cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+                cache: Optional[Dict[str, Any]] = None,
+                remat: str = "none") -> torch.Tensor:
     """Every layer of a non-audio model over the whole sequence h (B, S,
-    D). With `cache` (the `init_cache` layout), each layer's state goes
-    into it: the SSD and conv states for ssm; for the hybrid the RG-LRU and
-    conv states and each attention layer's last window of K/V as a ring;
-    for the attention stacks the K/V at positions [0, S)."""
+    D), each of the reference's scanned bodies (a layer, a hybrid triple or
+    tail layer, a (dense, MoE) pair) under `_remat(remat)`. With `cache`
+    (the `init_cache` layout), each layer's state goes into it: the SSD and
+    conv states for ssm; for the hybrid the RG-LRU and conv states and each
+    attention layer's last window of K/V as a ring; for the attention
+    stacks the K/V at positions [0, S)."""
     S = h.shape[1]
+    unit = _remat(remat)
     if cfg.family == "ssm":
         for l in range(cfg.num_layers):
-            h, (ssm_s, conv_s) = ssm_block(cfg, layer_params(params, l), h)
+            h, (ssm_s, conv_s) = unit(functools.partial(ssm_block, cfg),
+                                      layer_params(params, l), h)
             if cache is not None:
                 cache["ssm"][l] = ssm_s
                 cache["conv"][l] = conv_s
@@ -375,30 +473,39 @@ def _run_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         blocks = params["blocks"]
         n_tri, tail = _hybrid_counts(cfg)
         for t in range(n_tri):
-            for r in ("1", "2"):
-                h, (h_s, c_s) = rglru_block(cfg, _at(blocks["r" + r], t), h)
-                if cache is not None:
+            h, (s1, s2, (k, v)) = unit(
+                functools.partial(_triple, cfg, positions),
+                _at(blocks["r1"], t), _at(blocks["r2"], t),
+                _at(blocks["attn"], t), h)
+            if cache is not None:
+                for r, (h_s, c_s) in (("1", s1), ("2", s2)):
                     cache["h" + r][t] = h_s
                     cache["conv" + r][t] = c_s
-            p = _at(blocks["attn"], t)
-            h, (k, v) = attn_block(cfg, p, h, positions=positions)
-            h = ffn_block(cfg, p, h)
-            if cache is not None:
                 win = cache["k"].shape[2]
                 cache["k"][t] = _last_window(k, win)
                 cache["v"][t] = _last_window(v, win)
         for t in range(tail):
-            h, (h_s, c_s) = rglru_block(cfg, _at(params["tail"], t), h)
+            h, (h_s, c_s) = unit(functools.partial(rglru_block, cfg),
+                                 _at(params["tail"], t), h)
             if cache is not None:
                 cache["h_tail"][t] = h_s
                 cache["conv_tail"][t] = c_s
-    else:
-        for p, at in _attn_layers(params, cfg):
-            h, (k, v) = attn_block(cfg, p, h, positions=positions)
-            h = ffn_block(cfg, p, h)
+    elif _is_pairs(cfg):
+        pairs = params["pairs"]
+        for t in range(cfg.num_layers // 2):
+            h, kvs = unit(functools.partial(_pair, cfg, positions),
+                          _at(pairs["dense"], t), _at(pairs["moe"], t), h)
             if cache is not None:
-                cache["k"][at][:, :S] = k
-                cache["v"][at][:, :S] = v
+                for j, (k, v) in enumerate(kvs):
+                    cache["k"][t, j][:, :S] = k
+                    cache["v"][t, j][:, :S] = v
+    else:
+        for l in range(cfg.num_layers):
+            h, (k, v) = unit(functools.partial(_attn_ffn, cfg, positions),
+                             layer_params(params, l), h)
+            if cache is not None:
+                cache["k"][l][:, :S] = k
+                cache["v"][l][:, :S] = v
     return h
 
 
@@ -413,56 +520,78 @@ def _embed(params: Params, cfg: ModelConfig, batch: Dict[str, Any]):
     return h
 
 
-def forward(params: Params, cfg: ModelConfig,
-            batch: Dict[str, Any]) -> torch.Tensor:
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            remat: str = "none") -> torch.Tensor:
     """Full-sequence forward of every family -> logits (B, S, V), with no
     cache: batch["tokens"] (B, S), and batch["vision_embeds"] (B, P, D) for
-    vlm or batch["frames"] (B, encoder_seq, D) for audio. Attention runs the
-    prefill kernel on the card. Inference only: no autograd and no remat
-    (the parameters are frozen)."""
+    vlm or batch["frames"] (B, encoder_seq, D) for audio. It is the
+    training forward: with trainable parameters under grad, attention is
+    `FlashAttention` (the prefill kernel on the card, the reference's
+    blockwise backward) and `remat` ("none", "full" or "dots", the
+    reference's policies) applies to each scanned body: a layer, a hybrid
+    triple and each tail layer, a (dense, MoE) pair, each Whisper encoder
+    and decoder layer. With frozen parameters it builds no graph and calls
+    the prefill kernel directly. Each stacked leaf is sliced once per call
+    (`_unbound`)."""
     _check_ported(cfg)
+    params = _unbound(params, cfg)
     if cfg.family == "audio":
-        return _forward_audio(params, cfg, batch)
+        return _forward_audio(params, cfg, batch, remat)
     h = _embed(params, cfg, batch)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    return lm_head(cfg, params, _run_layers(params, cfg, h, positions))
+    return lm_head(cfg, params, _run_layers(params, cfg, h, positions,
+                                            remat=remat))
 
 
-def _encode(params: Params, cfg: ModelConfig,
-            frames: torch.Tensor) -> torch.Tensor:
+def _encoder_layer(cfg: ModelConfig, positions: torch.Tensor,
+                   p: Dict[str, torch.Tensor], h: torch.Tensor):
+    h, _ = attn_block(cfg, p, h, positions=positions, use_rope=False,
+                      causal=False)
+    return ffn_block(cfg, p, h)
+
+
+def _encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+            remat: str = "none") -> torch.Tensor:
     """Whisper's encoder over the stub frame embeddings (B, T, D), in their
     dtype: sinusoidal positions, bidirectional self-attention through the
-    prefill kernel (no RoPE, no mask), the GELU MLP, the final LayerNorm."""
+    prefill kernel (no RoPE, no mask), the GELU MLP, the final LayerNorm;
+    each layer under `_remat(remat)`."""
     T = frames.shape[1]
     h = frames + L.sinusoidal_positions(T, cfg.d_model,
                                         frames.device).to(frames.dtype)
     enc_pos = torch.arange(T, device=h.device)[None, :]
+    unit = _remat(remat)
     for l in range(cfg.num_encoder_layers):
-        p = _at(params["enc_layers"], l)
-        h, _ = attn_block(cfg, p, h, positions=enc_pos, use_rope=False,
-                          causal=False)
-        h = ffn_block(cfg, p, h)
+        h = unit(functools.partial(_encoder_layer, cfg, enc_pos),
+                 _at(params["enc_layers"], l), h)
     return _norm(cfg, params, h, "enc_final_norm")
 
 
-def _forward_audio(params: Params, cfg: ModelConfig,
-                   batch: Dict[str, Any]) -> torch.Tensor:
+def _decoder_layer(cfg: ModelConfig, positions: torch.Tensor,
+                   p: Dict[str, torch.Tensor], enc_out: torch.Tensor,
+                   h: torch.Tensor):
+    h, _ = attn_block(cfg, p, h, positions=positions, use_rope=False)
+    h = _cross_attn(cfg, p, h, *_cross_kv(cfg, p, enc_out))
+    return ffn_block(cfg, p, h)
+
+
+def _forward_audio(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+                   remat: str) -> torch.Tensor:
     """Whisper over batch["frames"] and the decoder tokens batch["tokens"]
     (B, S): the encoder, then each decoder layer's causal self-attention,
     cross-attention over the encoder output and GELU MLP."""
     dev = params.device
     enc_out = _encode(params, cfg, torch.as_tensor(batch["frames"],
-                                                   device=dev))
+                                                   device=dev), remat)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     S = tokens.shape[1]
     h = embed_tokens(cfg, params, tokens)
     h = h + L.sinusoidal_positions(S, cfg.d_model, dev).to(h.dtype)
     positions = torch.arange(S, device=dev)[None, :]
+    unit = _remat(remat)
     for l in range(cfg.num_layers):
-        p = layer_params(params, l)
-        h, _ = attn_block(cfg, p, h, positions=positions, use_rope=False)
-        h = _cross_attn(cfg, p, h, *_cross_kv(cfg, p, enc_out))
-        h = ffn_block(cfg, p, h)
+        h = unit(functools.partial(_decoder_layer, cfg, positions),
+                 layer_params(params, l), enc_out, h)
     return lm_head(cfg, params, h)
 
 

@@ -9,13 +9,19 @@ Whisper's decoder beside its ``enc_layers``), or the nested groups
 ``pairs.{dense, moe}`` of interleaved MoE pairs and ``blocks.{r1, r2,
 attn}`` and ``tail`` of the recurrent hybrid, each leaf stacked with a
 leading layer axis, so ``params["blocks"]["r1"]["w_x"]`` reads as it does
-in src/repro/models/model.py. The parameters are frozen: serving never
-builds an autograd graph.
+in src/repro/models/model.py.
+
+Serving's parameters are frozen (the default): `forward`, `prefill` and the
+decode steps then build no autograd graph. Training asks for trainable
+ones (``trainable=True`` in `init_params`, `from_jax_params` or
+`ModelParams`), and `ModelParams.leaves` gives every leaf under the
+reference's key path (``layers/wq``, ``blocks/r1/w_x``) in the order of the
+reference pytree's leaves, which the optimizer and the checkpoints use.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -26,28 +32,36 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import model_shapes
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
-def _group(tree: Mapping[str, Any]) -> nn.Module:
+def _group(tree: Mapping[str, Any], trainable: bool) -> nn.Module:
     """A group of leaves as an `nn.ParameterDict`, a group of groups as an
     `nn.ModuleDict` of them."""
     if any(isinstance(v, Mapping) for v in tree.values()):
-        return nn.ModuleDict({k: _group(v) for k, v in tree.items()})
-    return nn.ParameterDict({k: _frozen(t) for k, t in tree.items()})
+        return nn.ModuleDict({k: _group(v, trainable)
+                              for k, v in tree.items()})
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=trainable)
+                             for k, t in tree.items()})
 
 
 class ModelParams(nn.Module):
     """Stacked parameters of one model of a ported family; `params[key]`
     (and `params[group][sub][key]`) mirrors the reference pytree's dict
-    access."""
+    access. Frozen unless `trainable`."""
 
-    def __init__(self, tree: Mapping[str, Any]):
+    def __init__(self, tree: Mapping[str, Any], *, trainable: bool = False):
         super().__init__()
         for key, val in tree.items():
-            setattr(self, key, _group(val) if isinstance(val, Mapping)
-                    else _frozen(val))
+            setattr(self, key, _group(val, trainable)
+                    if isinstance(val, Mapping)
+                    else nn.Parameter(val, requires_grad=trainable))
+
+    def leaves(self) -> Dict[str, nn.Parameter]:
+        """{key path: leaf}, paths `/`-joined as the reference's checkpoint
+        keys are (``layers/wq``), in the order of the reference pytree's
+        leaves: keys sorted at every level, as JAX flattens a dict."""
+        named = {name.replace(".", "/"): t
+                 for name, t in self.named_parameters()}
+        return {path: named[path] for path in sorted(
+            named, key=lambda path: path.split("/"))}
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -65,7 +79,8 @@ class ModelParams(nn.Module):
 
 
 def from_jax_params(np_tree: Mapping[str, Any], *, device="cuda",
-                    dtype: torch.dtype = torch.float32) -> ModelParams:
+                    dtype: torch.dtype = torch.float32,
+                    trainable: bool = False) -> ModelParams:
     """The reference's `init_params` pytree, with leaves already converted to
     numpy arrays by the caller, as a `ModelParams` on `device` in `dtype`."""
     dev = resolve_device(device)
@@ -76,7 +91,7 @@ def from_jax_params(np_tree: Mapping[str, Any], *, device="cuda",
         arr = np.asarray(x, dtype=np.float32)
         return torch.from_numpy(arr.copy()).to(device=dev, dtype=dtype)
 
-    return ModelParams(conv(np_tree))
+    return ModelParams(conv(np_tree), trainable=trainable)
 
 
 # a slice of a stacked leaf above this many elements is drawn in parts
@@ -109,8 +124,8 @@ def _fix_recurrent(group: dict) -> None:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
-                device="cuda", dtype: torch.dtype = torch.float32
-                ) -> ModelParams:
+                device="cuda", dtype: torch.dtype = torch.float32,
+                trainable: bool = False) -> ModelParams:
     """Random weights with the reference's shapes and fan-in scaling
     (src/repro/models/model.py `init_params`): N(0, 1/fan_in) matrices and
     zero vectors (norm weights scale by 1 + w), then its ssm and RG-LRU
@@ -145,7 +160,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
             return group
         return draw(shapes)
 
-    return ModelParams(make(model_shapes(cfg)))
+    return ModelParams(make(model_shapes(cfg)), trainable=trainable)
 
 
 def redraw_norms(params: ModelParams, seed: int) -> ModelParams:
@@ -165,6 +180,7 @@ def redraw_norms(params: ModelParams, seed: int) -> ModelParams:
             base = 0.0
         else:
             continue
-        t.copy_(base + 0.1 * torch.randn(t.shape, generator=gen,
-                                         device=t.device))
+        with torch.no_grad():                   # trainable leaves too
+            t.copy_(base + 0.1 * torch.randn(t.shape, generator=gen,
+                                             device=t.device))
     return params

@@ -926,3 +926,107 @@ def test_vlm_segmented_prefill_on_the_card(card, dtype):
     got = ex.run_all(task)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# --- training: FlashAttention's gradient and a deterministic restart --------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # B, S, H, K, hd, causal, window
+    (2, 300, 8, 2, 64, True, 0),
+    (1, 200, 4, 4, 128, True, 64),
+    (2, 130, 4, 2, 32, False, 0),
+])
+def test_flash_attention_gradient_on_the_card(card, case, dtype):
+    """`FlashAttention` on the card (the CUDA prefill kernel forward, the
+    blockwise backward in f32 torch ops) against the plain versions on the
+    CPU in f32 on the same inputs: out against the plain forward, dq, dk
+    and dv against the plain backward given the kernel's out, within the
+    file's limit for the dtype. The forward launches the kernel once and
+    its plain version never; the backward runs once."""
+    from repro_torch.models.layers import blocked_attention
+    B, S, H, K, hd, causal, window = case
+    mask = dict(causal=causal, local_window=window, block=128)
+    gen = torch.Generator(device=card).manual_seed(11)
+    q = _randn((B, S, H, hd), dtype, gen, card)
+    k, v = (_randn((B, S, K, hd), dtype, gen, card) for _ in range(2))
+    dout = _randn((B, S, H, hd), dtype, gen, card)
+    counts.reset()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = blocked_attention(*leaves, **mask)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    launched = {**ops.counts(), **counts.read(["flash_attention_bwd_ref"])}
+    assert launched["flash_prefill_attention"] == 1
+    assert launched["chunked_prefill_attention_ref"] == 0
+    assert launched["flash_attention_bwd_ref"] == 1
+    cpu = [x.cpu().float() for x in (q, k, v, out.detach(), dout)]
+    want = [ref.chunked_prefill_attention_ref(
+        *cpu[:3], causal=causal, local_window=window)]
+    want += ref.flash_attention_bwd_ref(*cpu, **mask)
+    got = [out] + [x.grad for x in leaves]
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.detach().cpu().float(), w,
+                                   **TOL[dtype], msg=name)
+    counts.reset()
+
+
+_RESTART = """
+import tempfile, torch
+from repro_torch.configs.base import get_tiny_config
+from repro_torch.params import init_params
+from repro_torch.training import checkpoint as ckpt
+from repro_torch.training.data import DataConfig, data_iterator
+from repro_torch.training.optimizer import AdamWConfig, init_state
+from repro_torch.training.train import make_train_step
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = get_tiny_config("llama3_2_1b")
+step = make_train_step(cfg, AdamWConfig(lr=1e-2, warmup_steps=1),
+                       remat="full")
+data = DataConfig(seq_len=64, global_batch=4, vocab_size=cfg.vocab_size)
+
+def fresh():
+    p = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                    dtype=torch.bfloat16, trainable=True)
+    return p, init_state(p)
+
+def run(p, s, start, n):
+    it = data_iterator(data, start_step=start)
+    for _ in range(n):
+        p, s, _ = step(p, s, next(it))
+    return p, s
+
+p_full, s_full = run(*fresh(), 0, 4)
+p, s = run(*fresh(), 0, 2)
+with tempfile.TemporaryDirectory() as d:
+    ckpt.save(d, 2, {"params": p, "opt_state": s})
+    back = ckpt.restore(d, 2, {"params": p, "opt_state": s})
+p, s = run(back["params"], back["opt_state"], 2, 2)
+same = [torch.equal(a, b) for a, b in zip(
+    [*p_full.leaves().values(), *s_full.m.values(), *s_full.v.values()],
+    [*p.leaves().values(), *s.m.values(), *s.v.values()])]
+print(sum(same), len(same))
+"""
+
+
+def test_restart_on_the_card_is_bit_exact(card):
+    """The reference's restart equivalence on the card, in bf16 with f32
+    AdamW state and remat full: 4 steps straight against 2 steps, save,
+    restore and 2 steps, every parameter and m, v `torch.equal`. It runs
+    under `torch.use_deterministic_algorithms` in a process of its own,
+    where CUBLAS_WORKSPACE_CONFIG is set before cuBLAS starts."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, "-c", _RESTART], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    same, n = map(int, out.stdout.split()[-2:])
+    assert n == 3 * 10 and same == n, out.stdout
