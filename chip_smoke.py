@@ -205,6 +205,28 @@ Phases; the first failure exits non-zero and prints no result:
     ordered none > dots > full; and the reference's restart equivalence at
     full width: 4 steps straight against 2 steps, `save`, `restore` and 2
     steps, every parameter and m, v `torch.equal`.
+15. the sharded path (`distributed/sharding.py`): a 1-rank NCCL group
+    (from a `FileStore` under build/) and a (data 1, model 1) CUDA mesh.
+    Under `train_rules`, one phase-14 Llama3.2-1B train step with the
+    parameters and AdamW state as DTensors; under `serve_rules`, one
+    Llama3-8B `prefill` of 4096 tokens and 16 greedy `decode_step`s over a
+    sequence-sharded cache. Each against the same run outside the mesh on
+    the same weights: on a size-1 mesh every redistribute is the identity,
+    so the loss, every updated leaf and the logits are expected
+    `torch.equal` (any that is not is held to phase 9's bf16 bound and
+    counted), the tokens must be equal, the prefill and decode kernels
+    must launch (through `local_map`) with no plain version, and the times
+    are printed sharded beside unsharded (a second train step each, after
+    DTensor's first-call propagation; a profile of one decode step each).
+    NCCL failing to start fails the phase.
+16. the dry-run, in a subprocess (its `fake` group cannot share a process
+    with phase 15's NCCL one): `repro_torch.launch.dryrun` for llama3_2_1b
+    on pod1 (train_4k, prefill_32k, decode_32k; long_500k is skipped) and
+    train_4k on pod2, at published width on meta tensors; prints the
+    per-device bytes, FLOPs and collective bytes, and fails on an `error`.
+17. the simulator against the card (prints only): the cost model's TTFT
+    of a lone Llama3-8B prompt on `sim.hardware.H100` at phase 4's lengths
+    beside phase 4's measured TTFT, with the ratio.
 
 The line before the last holds the kernels' record: each kernel's launches
 by path (each path's counters zeroed just before it ran) and their sum, the
@@ -2327,6 +2349,288 @@ def train_determinism(torch) -> None:
              f"uninterrupted run")
 
 
+def full(x):
+    """A DTensor's whole value (the identity for a plain tensor)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def same_or_bound(got, want, label) -> bool:
+    """True when got is `torch.equal` to want; else held to phase 9's bf16
+    bound (`bf16_bound`), which fails beyond it."""
+    import torch
+    if torch.equal(got, want):
+        return True
+    bf16_bound(got, want, f"{label} (not bit-equal)")
+    return False
+
+
+def sharded_train(torch, ops, kcounts, mesh, device="cuda"):
+    """Phase 15's train half: one step of phase 14's Llama3.2-1B at its
+    shape, first outside a mesh, then from the same initial weights as
+    DTensors on `mesh` under `train_rules` (params and AdamW state sharded
+    by `param_axes` / `opt_state_axes`). Returns (launches, the step times
+    in ms, the number of leaves that were not bit-equal)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.params import ModelParams, distribute_params, nested
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import init_state
+    cfg, params, state, step, _, data = train_setup(torch)
+    init = {k: t.detach().clone() for k, t in params.leaves().items()}
+    batch = make_batch(data, 0, device=device)
+    times = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        times[label] = (time.monotonic() - t0) * 1e3
+        return out
+    params, state, met0 = timed(
+        "plain", lambda: step(params, state, batch))
+    rules = shd.train_rules()
+    p1 = distribute_params(ModelParams(nested(init), trainable=True), cfg,
+                           mesh, rules)
+    del init
+    s1 = init_state(p1)
+    sizes = shd.axis_sizes(mesh)
+    b1 = {k: shd.distribute(t, mesh, shd.placements(
+              tuple(t.shape), ("act_batch", None), sizes, rules))
+          for k, t in batch.items()}
+    ops.reset_counts()
+    with shd.use_sharding(mesh, rules):
+        p1, s1, met1 = timed("sharded", lambda: step(p1, s1, b1))
+    counts = {**ops.counts(), **kcounts.read(["flash_attention_bwd_ref"])}
+    print(f"  train step {times['plain']:.1f} ms plain, "
+          f"{times['sharded']:.1f} ms sharded (first sharded step: DTensor "
+          f"propagates every op's sharding once); loss "
+          f"{met0['loss'].item():.6f} / {full(met1['loss']).item():.6f}",
+          flush=True)
+    launches = path_launches("sharded train step", counts,
+                             ("flash_prefill_attention",))
+    if counts["flash_attention_bwd_ref"] != cfg.num_layers:
+        fail(f"phase 15: the attention backward ran "
+             f"{counts['flash_attention_bwd_ref']} times, not "
+             f"{cfg.num_layers}")
+    want = params.leaves()
+    pairs = [("loss", full(met1["loss"]), met0["loss"])]
+    for k, t in p1.leaves().items():
+        pairs += [(k, full(t.detach()), want[k].detach()),
+                  (f"m {k}", full(s1.m[k]), state.m[k]),
+                  (f"v {k}", full(s1.v[k]), state.v[k])]
+    unequal = [k for k, got, w in pairs if not torch.equal(got, w)]
+    print(f"  {len(pairs) - len(unequal)} of {len(pairs)} (loss, every "
+          f"parameter, m and v) torch.equal to the unsharded step",
+          flush=True)
+    for k, got, w in pairs:
+        if k in unequal:
+            bf16_bound(got, w, f"train {k}")
+    # a second step of each, after DTensor's first-call propagation
+    batch = make_batch(data, 1, device=device)
+    b1 = {k: shd.distribute(t, mesh, shd.placements(
+              tuple(t.shape), ("act_batch", None), sizes, rules))
+          for k, t in batch.items()}
+    timed("plain, step 2", lambda: step(params, state, batch))
+    with shd.use_sharding(mesh, rules):
+        timed("sharded, step 2", lambda: step(p1, s1, b1))
+    print(f"  second step {times['plain, step 2']:.1f} ms plain, "
+          f"{times['sharded, step 2']:.1f} ms sharded", flush=True)
+    return launches["flash_prefill_attention"], times, len(unequal)
+
+
+def sharded_serve(torch, np, ops, mesh, n_steps=16, S=4096,
+                  device="cuda"):
+    """Phase 15's serve half: Llama3-8B at published width in bf16, one
+    `prefill` of S tokens and n_steps greedy `decode_step`s, outside a mesh
+    and then on `mesh` under `serve_rules` on the same weights (the decode
+    cache sequence-sharded over `model`, gathered before each decode
+    kernel). Returns (launches by kernel, times, the number of steps whose
+    logits were not bit-equal)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.params import distribute_params, init_params
+    cfg = get_config("llama3_8b")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device, dtype=torch.bfloat16)
+    rules = shd.serve_rules()
+    sharded = distribute_params(params, cfg, mesh, rules)
+    toks = torch.as_tensor(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (1, S)), device=device)
+    sizes = shd.axis_sizes(mesh)
+
+    def put(t, on_mesh):
+        if not on_mesh:
+            return t
+        dims = ("act_batch",) + (None,) * (t.dim() - 1)
+        return shd.distribute(t, mesh, shd.placements(tuple(t.shape), dims,
+                                                      sizes, rules))
+
+    def run(p, on_mesh):
+        out = {"logits": [], "tokens": [], "step_ms": []}
+        with shd.use_sharding(mesh if on_mesh else None, rules):
+            for _ in range(2):                   # the second is timed
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                logits, cache = M.prefill(p, cfg, {"tokens": put(toks,
+                                                                 on_mesh)},
+                                          max_seq=S + n_steps + 1,
+                                          cache_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                out["prefill_s"] = time.monotonic() - t0
+            out["logits"].append(full(logits))
+            for _ in range(n_steps):
+                nxt = out["logits"][-1].argmax(-1)
+                out["tokens"].append(int(nxt[0]))
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                logits, cache = M.decode_step(p, cfg, put(nxt, on_mesh),
+                                              cache)
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.monotonic() - t0) * 1e3)
+                out["logits"].append(full(logits))
+        out["next"] = (cache, out["logits"][-1].argmax(-1))
+        return out
+    plain = run(params, False)
+    ops.reset_counts()
+    got = run(sharded, True)
+    counts = ops.counts()
+    for label, r, p, on_mesh in (("plain", plain, params, False),
+                                 ("sharded", got, sharded, True)):
+        cache, nxt = r["next"]
+        with shd.use_sharding(mesh if on_mesh else None, rules):
+            breakdown(torch, f"  {label} decode_step (position {S + n_steps})",
+                      lambda: M.decode_step(p, cfg, put(nxt, on_mesh),
+                                            cache))
+    med = {k: sorted(r["step_ms"])[n_steps // 2]
+           for k, r in (("plain", plain), ("sharded", got))}
+    print(f"  prefill {S}: {plain['prefill_s']:.4f} s plain, "
+          f"{got['prefill_s']:.4f} s sharded; decode step median "
+          f"{med['plain']:.2f} ms plain, {med['sharded']:.2f} ms sharded "
+          f"({n_steps} steps)", flush=True)
+    print(f"  tokens plain   {plain['tokens']}\n"
+          f"  tokens sharded {got['tokens']}", flush=True)
+    launches = path_launches("sharded prefill + decode", counts,
+                             ("flash_prefill_attention",
+                              "flash_decode_attention"))
+    want = {"flash_prefill_attention": 2 * cfg.num_layers,
+            "flash_decode_attention": n_steps * cfg.num_layers}
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"phase 15: {name} launched {counts[name]} times, not {n}")
+    unequal = sum(not same_or_bound(g, w, f"serve step {i}")
+                  for i, (g, w) in enumerate(zip(got["logits"],
+                                                 plain["logits"])))
+    if got["tokens"] != plain["tokens"]:
+        fail(f"phase 15: sharded tokens {got['tokens']} differ from "
+             f"{plain['tokens']}")
+    print(f"  {n_steps + 1 - unequal} of {n_steps + 1} logits torch.equal, "
+          "tokens equal", flush=True)
+    times = {"prefill_s": {"plain": plain["prefill_s"],
+                           "sharded": got["prefill_s"]},
+             "decode_step_ms": med}
+    return launches, times, unequal
+
+
+def sharded_phase(torch, np, ops, kcounts):
+    """Phase 15 (see the module docstring): a 1-rank NCCL group from a
+    `FileStore` under build/ and a (data 1, model 1) mesh; the sharded
+    train step and the sharded prefill + decode, each against the same run
+    outside the mesh. Returns the kernels' launches by path and the
+    times."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store = ROOT / "build" / "nccl_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(store), 1), rank=0,
+            world_size=1, device_id=torch.device("cuda", 0))
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)                     # NCCL starts here
+        torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - any start failure fails
+        fail(f"phase 15: NCCL did not start: {type(exc).__name__}: {exc}")
+    print(f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
+          f"world {dist.get_world_size()}, mesh {mesh}", flush=True)
+    try:
+        train_launch, train_ms, train_unequal = sharded_train(
+            torch, ops, kcounts, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_launch, serve_times, serve_unequal = sharded_serve(
+            torch, np, ops, mesh)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path = {"flash_prefill_attention": {
+                   "sharded train (phase 15)": train_launch,
+                   "sharded prefill (phase 15)":
+                       serve_launch["flash_prefill_attention"]},
+               "flash_decode_attention": {
+                   "sharded decode (phase 15)":
+                       serve_launch["flash_decode_attention"]}}
+    return by_path, {"train_step_ms": train_ms, **serve_times,
+                     "train_leaves_not_equal": train_unequal,
+                     "serve_steps_not_equal": serve_unequal}
+
+
+def dryrun_phase() -> None:
+    """Phase 16: the port's dry-run in a process of its own (its `fake`
+    group cannot share this process with phase 15's NCCL one): llama3_2_1b
+    on pod1 (train_4k, prefill_32k, decode_32k; long_500k skipped) and
+    train_4k on pod2, at published width, on meta tensors."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    results = ROOT / "results" / "dryrun_torch"
+    for extra in (["--mesh", "pod1"], ["--mesh", "pod2", "--shape",
+                                       "train_4k"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               "llama3_2_1b", "--force", *extra]
+        t0 = time.monotonic()
+        out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=600, cwd=ROOT)
+        print(f"  {' '.join(cmd[3:])}: rc {out.returncode} in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        if out.returncode != 0:
+            fail(f"phase 16: the dry-run failed: {out.stdout[-2000:]}"
+                 f"{out.stderr[-2000:]}")
+    cells = [f"llama3_2_1b__{shape}__pod1.json" for shape in (
+        "train_4k", "prefill_32k", "decode_32k", "long_500k")]
+    for name in cells + ["llama3_2_1b__train_4k__pod2.json"]:
+        path = results / name
+        r = json.loads(path.read_text())
+        if r["status"] == "error":
+            fail(f"phase 16: {path.name}: {r['error']}")
+        if r["status"] == "skipped":
+            print(f"  {r['shape']} {r['mesh']}: skipped ({r['reason']})")
+            continue
+        coll = {k: v for k, v in r["collective_bytes_per_device"].items()
+                if v}
+        print(f"  {r['shape']} {r['mesh']} ({r['devices']} devices): "
+              f"per device argument bytes {json.dumps(r['argument_bytes'])}"
+              f", FLOPs {r['flops']:.4e}, collective bytes "
+              f"{json.dumps(coll)}, traced in {r['wall_s']} s", flush=True)
+
+
+def sim_phase(profile: dict) -> None:
+    """Phase 17: the simulator's H100 against the card: the cost model's
+    TTFT of a lone Llama3-8B prompt at phase 4's lengths (chunk 512, as the
+    profile's executor runs) beside phase 4's measured TTFT. Prints only."""
+    from repro_torch.sim.costmodel import LLAMA3_8B, PrefillCostModel
+    from repro_torch.sim.hardware import H100
+    model = PrefillCostModel(LLAMA3_8B, H100)
+    for n, measured in sorted(profile.items()):
+        predicted = model.prefill_time(n, chunk_tokens=512)
+        print(f"  {n:>5} tokens: simulated {predicted * 1e3:.2f} ms, "
+              f"measured {measured * 1e3:.2f} ms, measured/simulated "
+              f"{measured / predicted:.3f}", flush=True)
+
+
 def port_request(n):
     from repro_torch.core import Request
     return Request(num_tokens=n, slo=600.0, arrival=time.monotonic())
@@ -2868,6 +3172,7 @@ def main() -> None:
           f"{n_params / 1e9:.3f} B params in {dep.params.dtype}")
     print("TTFT profile (s, synchronised):",
           json.dumps({n: round(t, 4) for n, t in dep.profile.items()}))
+    profile4 = dict(dep.profile)                 # phase 17 reads it
     print(f"build + profile {time.monotonic() - t0:.1f} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
     try:
@@ -2998,6 +3303,29 @@ def main() -> None:
     train_counts, train_row = train_phase(torch, np, ops, kcounts, check)
     print(f"phase 14 took {time.monotonic() - t0:.1f} s", flush=True)
 
+    # --- 15. the sharded path on the card ---------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("15. sharded path: a 1-rank NCCL (data 1, model 1) mesh; "
+          "Llama3.2-1B train step under train_rules, Llama3-8B prefill + "
+          "16 decode steps under serve_rules")
+    t0 = time.monotonic()
+    sharded_counts, sharded_times = sharded_phase(torch, np, ops, kcounts)
+    print(f"phase 15 took {time.monotonic() - t0:.1f} s: "
+          f"{json.dumps(sharded_times)}", flush=True)
+
+    # --- 16. the dry-run -------------------------------------------------------
+    phase("16. dry-run: llama3_2_1b, published width, meta tensors, a fake "
+          "group of 256 (pod1) and 512 (pod2)")
+    t0 = time.monotonic()
+    dryrun_phase()
+    print(f"phase 16 took {time.monotonic() - t0:.1f} s", flush=True)
+
+    # --- 17. the simulator's H100 against the card ------------------------------
+    phase("17. simulator: PrefillCostModel(LLAMA3_8B, H100) against phase "
+          "4's measured TTFT")
+    sim_phase(profile4)
+
     kernels = []
     for name, route, src, replaces, main in (
             ("flash_prefill_attention", "cuda",
@@ -3025,6 +3353,7 @@ def main() -> None:
                 by_path[path] = c[name]
         if name == "flash_prefill_attention":
             by_path.update(train_counts)
+        by_path.update(sharded_counts.get(name, {}))
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         entry = {"name": name, "route": route, "source": src,

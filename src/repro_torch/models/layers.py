@@ -13,12 +13,18 @@ the sequence.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_bwd_ref, naive_attention
 
@@ -112,13 +118,42 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The reference's `blocked_attention` (layers.py:222-253): q (B, S, H,
     hd) over k/v (B, T, K, hd) -> (B, S, H, hd) in q's dtype, with a
     backward of O(S * block) memory. `FlashAttention` with q_offset and
-    kv_len as run-time values (training passes 0 and T)."""
-    return FlashAttention.apply(q, k, v, q_offset, kv_len, causal,
-                                local_window, block)
+    kv_len as run-time values (training passes 0 and T). DTensor inputs
+    (the sharded path) run it on each rank's local shards, forward and
+    backward, through `ops.on_local_shards`."""
+    def local(q, k, v, q_offset, kv_len):
+        return FlashAttention.apply(q, k, v, q_offset, kv_len, causal,
+                                    local_window, block)
+    return ops.on_local_shards(local, q, k, v, q_offset, kv_len)
 
 
 def gate_up(x: torch.Tensor, w_in: torch.Tensor) -> torch.Tensor:
-    """silu(x W_gate) * (x W_up) with w_in (D, 2, F) gate|up."""
+    """silu(x W_gate) * (x W_up) with w_in (D, 2, F) gate|up, as one
+    product over (D, 2F). A DTensor w_in runs it on each rank's local
+    shards (DTensor cannot flatten (2, F) with F sharded): x with its
+    leading dims sharded as they are and D gathered, w_in with F sharded as
+    it is and D gathered, the output sharded like both; x's gradient sums
+    over F's shards and w_in's over x's (Partial)."""
+    if not isinstance(w_in, DTensor):
+        return _gate_up(x, w_in)
+    mesh = w_in.device_mesh
+    x = shd.as_dtensor(x, mesh)
+    lead = x.dim() - 1
+    px, pw, out, gx, gw = [], [], [], [], []
+    for a, b in zip(x.placements, w_in.placements):
+        a = a if isinstance(a, Shard) and a.dim < lead else Replicate()
+        b = b if b == Shard(2) and a == Replicate() else Replicate()
+        px.append(a)
+        pw.append(b)
+        out.append(Shard(lead) if b == Shard(2) else a)
+        gx.append(Partial() if b == Shard(2) else a)
+        gw.append(Partial() if isinstance(a, Shard) else b)
+    return local_map(_gate_up, out_placements=out, in_placements=(px, pw),
+                     in_grad_placements=(gx, gw), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w_in)
+
+
+def _gate_up(x: torch.Tensor, w_in: torch.Tensor) -> torch.Tensor:
     D, _, Fd = w_in.shape
     gu = (x @ w_in.reshape(D, 2 * Fd)).unflatten(-1, (2, Fd))
     return F.silu(gu[..., 0, :]) * gu[..., 1, :]
@@ -206,9 +241,77 @@ def moe_apply(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
     indices (E, G * cap) built by scatter (one token per slot), a gather of
     x into it (zeros in empty slots), one `bmm` per expert matrix over all
     groups, and a gather of each token's k slots summed in f32. No float
-    atomics and no host sync: every step's order is fixed by the shapes."""
-    B, S, D = x.shape
+    atomics and no host sync: every step's order is fixed by the shapes.
+
+    DTensor inputs (the sharded path) run on each rank's local shards, as
+    GSPMD partitions it: the experts stay sharded where both expert weights
+    shard them (expert parallelism over `model`), each rank routes every
+    pair but runs only its own experts, and the output is the sum of the
+    ranks' partial combines (Partial); the batch stays sharded where its
+    shards hold whole groups (the same groups and capacity as the global
+    batch), else it is gathered, as the routing and the weights' other
+    dims are."""
+    kw = dict(k=k, capacity_factor=capacity_factor,
+              min_capacity=min_capacity, group_size=group_size)
+    if isinstance(w_gate_up, DTensor):
+        return _moe_apply_sharded(x, weights, idx, w_gate_up, w_down, **kw)
+    return _moe_apply(x, weights, idx, w_gate_up, w_down, **kw)
+
+
+def _moe_apply_sharded(x, weights, idx, w_gate_up, w_down, **kw):
+    mesh = w_gate_up.device_mesh
+    x, weights, idx, w_down = (shd.as_dtensor(t, mesh)
+                               for t in (x, weights, idx, w_down))
+    B, S, _ = x.shape
     E, _, F2 = w_gate_up.shape
+    groups = functools.partial(moe_groups, k=kw["k"], n_experts=E,
+                               d_ff=F2 // 2,
+                               capacity_factor=kw["capacity_factor"],
+                               min_capacity=kw["min_capacity"],
+                               group_size=kw["group_size"])
+    G, g, cap = groups(B * S)
+    px, pw, out, gx, gw = [], [], [], [], []
+    n_batch = 1
+    for i, (a, w1, w2) in enumerate(zip(x.placements, w_gate_up.placements,
+                                        w_down.placements)):
+        n = mesh.size(i)
+        if w1 == Shard(0) and w2 == Shard(0):           # experts
+            px.append(Replicate())
+            pw.append(Shard(0))
+            out.append(Partial())
+            gx.append(Partial())
+            gw.append(Shard(0))
+        elif a == Shard(0) and B % (n_batch * n) == 0 and \
+                groups(B * S // (n_batch * n)) == (G // (n_batch * n), g,
+                                                   cap):
+            n_batch *= n                                 # whole groups
+            px.append(Shard(0))
+            pw.append(Replicate())
+            out.append(Shard(0))
+            gx.append(Shard(0))
+            gw.append(Partial())
+        else:
+            for lst in (px, pw, out, gx, gw):
+                lst.append(Replicate())
+    _, offset = compute_local_shape_and_global_offset(
+        w_gate_up.shape, mesh, pw)
+    local = functools.partial(_moe_apply, **kw, e0=offset[0], n_experts=E)
+    return local_map(local, out_placements=out,
+                     in_placements=(px, px, px, pw, pw),
+                     in_grad_placements=(gx, gx, px, gw, gw),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x, weights, idx, w_gate_up, w_down)
+
+
+def _moe_apply(x, weights, idx, w_gate_up, w_down, *, k, capacity_factor,
+               min_capacity, group_size, e0=0, n_experts=0) -> torch.Tensor:
+    """`moe_apply` on plain tensors. With `n_experts`, w_gate_up and w_down
+    hold only experts [e0, e0 + their length) of n_experts: every pair is
+    routed, only these experts run, and the other experts' pairs weigh 0
+    in the combine (a partial sum over the experts)."""
+    B, S, D = x.shape
+    El, _, F2 = w_gate_up.shape
+    E = n_experts or El
     n = B * S
     G, g, cap = moe_groups(n, k, E, F2 // 2, capacity_factor=capacity_factor,
                            min_capacity=min_capacity, group_size=group_size)
@@ -226,8 +329,11 @@ def moe_apply(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
     # expert-major rows (E, G * cap), so that each expert's weights are read
     # once per call whatever the number of groups
     src = (grp[..., None] * (g + 1) + table[..., :cap]).transpose(0, 1)
+    src = src.reshape(E, G * cap)
+    if El < E:
+        src = src[e0:e0 + El]
     xpad = torch.cat([x.reshape(G, g, D), x.new_zeros(G, 1, D)], dim=1)
-    xe = xpad.reshape(G * (g + 1), D)[src.reshape(E, G * cap)]
+    xe = xpad.reshape(G * (g + 1), D)[src]
 
     gate, up = torch.bmm(xe, w_gate_up).chunk(2, dim=-1)
     ye = torch.bmm(F.silu(gate) * up, w_down)           # (E, G * cap, D)
@@ -236,8 +342,12 @@ def moe_apply(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
     # to the activation dtype as the reference casts it), summed over the
     # k slots in slot order in f32 and rounded once
     row = (ig * G + grp) * cap + pos.clamp(max=cap - 1)
+    if El < E:                          # another rank runs the others
+        keep = keep & (ig >= e0) & (ig < e0 + El)
+        row = ((ig - e0).clamp(0, El - 1) * G + grp) * cap + \
+            pos.clamp(max=cap - 1)
     w = torch.where(keep, weights.reshape(G, g * k), 0.0).to(ye.dtype)
-    yk = ye.reshape(E * G * cap, D)[row].float() * w.float()[..., None]
+    yk = ye.reshape(El * G * cap, D)[row].float() * w.float()[..., None]
     y = yk.reshape(G, g, k, D).sum(dim=2)
     return y.to(ye.dtype).reshape(B, S, D)
 

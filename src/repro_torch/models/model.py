@@ -21,6 +21,12 @@ forward too, with the reference's remat policies.
 Serving (`SegmentedPrefill`, the ragged decode step, speculation) takes the
 dense, vlm and uniform MoE stacks only, as in the reference; the pairs,
 ssm, the hybrid and audio are served by `prefill` and `decode_step`.
+
+The same functions run sharded on DTensors inside
+`distributed.sharding.use_sharding`: `param_axes` and `cache_axes` give
+every leaf's logical dims, activations are tagged with `logical` at the
+reference's sites, and the cache is written where each rank's block lies
+(`sharding.write_seq`). Outside a mesh every tag is the identity.
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, _expanded_pattern
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import logical
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -173,6 +181,94 @@ def model_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
+def _attn_layer_axes(cfg: ModelConfig, cross: bool = False,
+                     moe: Optional[bool] = None) -> Dict[str, Tuple]:
+    """Logical dims of `_attn_layer_shapes`' leaves (the reference's
+    `_attn_layer_axes`): K/V projections replicate (kv_x_hd), the rest
+    shards d_model, heads, ff or experts."""
+    if moe is None:
+        moe = bool(cfg.num_experts)
+    ax: Dict[str, Tuple] = {"ln1": (None,), "wq": ("d_model", "heads_x_hd"),
+                            "wk": ("d_model", "kv_x_hd"),
+                            "wv": ("d_model", "kv_x_hd"),
+                            "wo": ("heads_x_hd", "d_model")}
+    if cfg.qkv_bias:
+        ax.update(bq=("heads_x_hd",), bk=("kv_x_hd",), bv=("kv_x_hd",))
+    if cfg.family == "audio":
+        ax["ln1_b"] = (None,)
+    if cross:
+        ax.update(ln_x=(None,), ln_x_b=(None,),
+                  wq_x=("d_model", "heads_x_hd"), wk_x=("d_model", "kv_x_hd"),
+                  wv_x=("d_model", "kv_x_hd"), wo_x=("heads_x_hd", "d_model"))
+    if moe:
+        ax.update(router=("d_model", None), wi=("experts", "d_model", "ff"),
+                  wd=("experts", "ff", "d_model"), ln2=(None,))
+    elif cfg.family == "audio":
+        ax.update(ln2=(None,), ln2_b=(None,), wi=("d_model", "ff"),
+                  bi=("ff",), wd=("ff", "d_model"), bd=(None,))
+    else:
+        ax.update(ln2=(None,), wi=("d_model", None, "ff"),
+                  wd=("ff", "d_model"))
+    return ax
+
+
+def _rglru_layer_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    return {
+        "ln1": (None,),
+        "w_x": ("d_model", "lru"), "w_gate": ("d_model", "lru"),
+        "conv_w": ("lru", None), "conv_b": ("lru",),
+        "a_param": ("lru",), "w_rg": ("lru", "lru"), "w_ig": ("lru", "lru"),
+        "w_y": ("lru", "d_model"),
+        "ln2": (None,), "wi": ("d_model", None, "ff"), "wd": ("ff", "d_model"),
+    }
+
+
+def _ssm_layer_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    return {
+        "ln": (None,),
+        "in_proj": ("d_model", "ssm_inner"),
+        "conv_w": ("ssm_inner", None), "conv_b": ("ssm_inner",),
+        "A_log": (None,), "Dp": (None,), "dt_bias": (None,),
+        "norm_w": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "d_model"),
+    }
+
+
+def _stack_axes(axes: Dict[str, Tuple]) -> Dict[str, Tuple]:
+    return {k: ("layers",) + a for k, a in axes.items()}
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical dims of every leaf of `model_shapes(cfg)`, leaf for leaf the
+    reference's `param_axes` (src/repro/models/model.py:224); the stacked
+    axis is "layers". `distributed.sharding.tree_placements` maps them to
+    placements."""
+    _check_ported(cfg)
+    out: Dict[str, Any] = {"embed": ("vocab", "d_model"),
+                           "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        out["unembed"] = ("d_model", "vocab")
+    if cfg.family == "ssm":
+        out["layers"] = _stack_axes(_ssm_layer_axes(cfg))
+    elif cfg.family == "hybrid":
+        out["blocks"] = {"r1": _stack_axes(_rglru_layer_axes(cfg)),
+                         "r2": _stack_axes(_rglru_layer_axes(cfg)),
+                         "attn": _stack_axes(_attn_layer_axes(cfg))}
+        if _hybrid_counts(cfg)[1]:
+            out["tail"] = _stack_axes(_rglru_layer_axes(cfg))
+    elif cfg.family == "audio":
+        out.update(enc_final_norm=(None,), enc_final_norm_b=(None,),
+                   final_norm_b=(None,))
+        out["enc_layers"] = _stack_axes(_attn_layer_axes(cfg))
+        out["layers"] = _stack_axes(_attn_layer_axes(cfg, cross=True))
+    elif _is_pairs(cfg):
+        out["pairs"] = {"dense": _stack_axes(_attn_layer_axes(cfg, moe=False)),
+                        "moe": _stack_axes(_attn_layer_axes(cfg, moe=True))}
+    else:
+        out["layers"] = _stack_axes(_attn_layer_axes(cfg))
+    return out
+
+
 def _at(group, l: int) -> Dict[str, torch.Tensor]:
     """Layer `l`'s slice of every stacked leaf of a group (views)."""
     return {k: v[l] for k, v in group.items()}
@@ -185,19 +281,19 @@ def layer_params(params: Params, l: int) -> Dict[str, torch.Tensor]:
 
 def embed_tokens(cfg: ModelConfig, params: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    return logical(shd.lookup(params["embed"], tokens), "act_batch",
+                   "act_seq", "act_d")
 
 
 def _project_qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                  x: torch.Tensor):
     """Separate q/k/v projections, shaped (B, S, heads, hd)."""
-    B, S = x.shape[:2]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, K, hd),
-            v.reshape(B, S, K, hd))
+    return (shd.unflatten(q, -1, (H, hd)), shd.unflatten(k, -1, (K, hd)),
+            shd.unflatten(v, -1, (K, hd)))
 
 
 LayerParams = Dict[str, torch.Tensor]
@@ -235,13 +331,15 @@ def ffn_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     otherwise SwiGLU."""
     x = _norm(cfg, p, h, "ln2")
     if "ln2_b" in p:
-        return h + L.gelu_mlp(x, p["wi"], p["bi"], p["wd"], p["bd"])
-    if "router" in p:
-        return h + L.moe_ffn(x, p["router"], p["wi"], p["wd"],
-                             k=cfg.experts_per_token,
-                             capacity_factor=cfg.moe_capacity_factor,
-                             min_capacity=cfg.moe_min_capacity)
-    return h + L.swiglu(x, p["wi"], p["wd"])
+        y = L.gelu_mlp(x, p["wi"], p["bi"], p["wd"], p["bd"])
+    elif "router" in p:
+        y = L.moe_ffn(x, p["router"], p["wi"], p["wd"],
+                      k=cfg.experts_per_token,
+                      capacity_factor=cfg.moe_capacity_factor,
+                      min_capacity=cfg.moe_min_capacity)
+    else:
+        y = L.swiglu(x, p["wi"], p["wd"])
+    return logical(h + y, "act_batch", "act_seq", "act_d")
 
 
 def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -250,7 +348,7 @@ def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     h = _norm(cfg, params, h, "final_norm")
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     # the matmul runs in the weights' type (an f32 prefill state casts down)
-    return h.to(w.dtype) @ w
+    return logical(h.to(w.dtype) @ w, "act_batch", "act_seq", "act_vocab")
 
 
 def _merge_vision(h: torch.Tensor, vision_embeds: torch.Tensor
@@ -286,18 +384,20 @@ def attn_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     if use_rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
+    q = logical(q, "act_batch", "act_seq", "act_heads", None)
+    k = logical(k, "act_batch", "act_seq", "act_heads", None)
     o = _attention(q, k, v, causal=causal, local_window=cfg.local_window)
-    return h + o.reshape(h.shape[0], h.shape[1], -1) @ p["wo"], (k, v)
+    h = h + shd.merge_heads(o) @ p["wo"]
+    return logical(h, "act_batch", "act_seq", "act_d"), (k, v)
 
 
 def _cross_kv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
               enc_out: torch.Tensor):
     """A decoder layer's cross-attention keys and values over the encoder
     output (B, T, D): each (B, T, K, hd)."""
-    B, T = enc_out.shape[:2]
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return ((enc_out @ p["wk_x"]).reshape(B, T, K, hd),
-            (enc_out @ p["wv_x"]).reshape(B, T, K, hd))
+    return (shd.unflatten(enc_out @ p["wk_x"], -1, (K, hd)),
+            shd.unflatten(enc_out @ p["wv_x"], -1, (K, hd)))
 
 
 def _cross_attn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -307,14 +407,15 @@ def _cross_attn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     every encoder key: the prefill kernel without a mask, or for one
     position (a decode step) the decode kernel with kv_len = T on every row
     (its query at T - 1 sees all T keys)."""
-    B, S = h.shape[:2]
+    S = h.shape[1]
     x = L.layer_norm(h, p["ln_x"], p["ln_x_b"], cfg.norm_eps)
-    q = (x @ p["wq_x"]).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    q = shd.unflatten(x @ p["wq_x"], -1,
+                      (cfg.num_heads, cfg.resolved_head_dim))
     if S == 1:
-        o = ops.decode_attention(q[:, 0], xk, xv, xk.shape[1])
+        o = ops.decode_attention(q[:, 0], xk, xv, xk.shape[1])[:, None]
     else:
         o = _attention(q, xk, xv, causal=False)
-    return h + o.reshape(B, S, -1) @ p["wo_x"]
+    return h + shd.merge_heads(o) @ p["wo_x"]
 
 
 def rglru_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -329,7 +430,8 @@ def rglru_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                                      conv_state)
     y, h_last = L.rglru(xb, p["a_param"], p["w_rg"], p["w_ig"], h_state)
     h = h + (y * gate) @ p["w_y"]
-    return ffn_block(cfg, p, h), (h_last, conv_state)
+    h = logical(ffn_block(cfg, p, h), "act_batch", "act_seq", "act_d")
+    return h, (h_last, conv_state)
 
 
 def _ssm_in(cfg: ModelConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
@@ -365,7 +467,9 @@ def ssm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
     xs = xs.reshape(Bsz, S, cfg.ssm_heads, cfg.ssm_head_dim)
     y, ssm_state = L.ssd_chunked(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
                                  h0=ssm_state)
-    return _ssm_out(cfg, p, h, y, xs, z), (ssm_state, conv_state)
+    h = logical(_ssm_out(cfg, p, h, y, xs, z), "act_batch", "act_seq",
+                "act_d")
+    return h, (ssm_state, conv_state)
 
 
 # ---------------------------------------------------------------------------
@@ -497,15 +601,15 @@ def _run_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                           _at(pairs["dense"], t), _at(pairs["moe"], t), h)
             if cache is not None:
                 for j, (k, v) in enumerate(kvs):
-                    cache["k"][t, j][:, :S] = k
-                    cache["v"][t, j][:, :S] = v
+                    shd.write_seq(cache["k"][t, j], 0, k)
+                    shd.write_seq(cache["v"][t, j], 0, v)
     else:
         for l in range(cfg.num_layers):
             h, (k, v) = unit(functools.partial(_attn_ffn, cfg, positions),
                              layer_params(params, l), h)
             if cache is not None:
-                cache["k"][l][:, :S] = k
-                cache["v"][l][:, :S] = v
+                shd.write_seq(cache["k"][l], 0, k)
+                shd.write_seq(cache["v"][l], 0, v)
     return h
 
 
@@ -559,6 +663,7 @@ def _encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     T = frames.shape[1]
     h = frames + L.sinusoidal_positions(T, cfg.d_model,
                                         frames.device).to(frames.dtype)
+    h = logical(h, "act_batch", "act_seq", "act_d")
     enc_pos = torch.arange(T, device=h.device)[None, :]
     unit = _remat(remat)
     for l in range(cfg.num_encoder_layers):
@@ -642,13 +747,43 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
     return out
 
 
+def cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical dims of every leaf of `cache_shapes(cfg, ...)`, the
+    reference's `cache_axes` (src/repro/models/model.py:570). Its "pos" is
+    a Python int here and has no entry."""
+    _check_ported(cfg)
+    kv = ("layers", "cache_batch", "cache_seq", "cache_kv_heads", None)
+    ax: Dict[str, Tuple] = {}
+    if cfg.family == "ssm":
+        ax["ssm"] = ("layers", "cache_batch", None, "ssm_inner", None)
+        ax["conv"] = ("layers", "cache_batch", None, "ssm_inner")
+    elif cfg.family == "hybrid":
+        ax.update(k=kv, v=kv)
+        for k in ("h1", "h2"):
+            ax[k] = ("layers", "cache_batch", "lru")
+        for k in ("conv1", "conv2"):
+            ax[k] = ("layers", "cache_batch", None, "lru")
+        if _hybrid_counts(cfg)[1]:
+            ax["h_tail"] = ("layers", "cache_batch", "lru")
+            ax["conv_tail"] = ("layers", "cache_batch", None, "lru")
+    elif cfg.family == "audio":
+        ax.update(k=kv, v=kv, xk=kv, xv=kv)
+    else:
+        lead = ("layers", None) if _is_pairs(cfg) else ("layers",)
+        ax.update(k=lead + kv[1:], v=lead + kv[1:])
+    return ax
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
-    """Zeroed cache tensors of `cache_shapes` on `device`, and pos 0."""
+    """Zeroed cache tensors of `cache_shapes` on `device`, and pos 0. Inside
+    `use_sharding`, each leaf is a DTensor placed by `cache_axes`."""
     dev = resolve_device(device)
     cache: Dict[str, Any] = {
         k: torch.zeros(s, dtype=d, device=dev)
         for k, (s, d) in cache_shapes(cfg, batch, max_seq, dtype).items()}
+    if shd.current() is not None:
+        cache = shd.distribute_tree(cache, cache_axes(cfg))
     cache["pos"] = 0
     return cache
 
@@ -753,8 +888,10 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if cfg.family != "audio":
             q = L.apply_rope(q, rp, cfg.rope_theta)
             k = L.apply_rope(k, rp, cfg.rope_theta)
-        k_l[:, pos] = k[:, 0].to(k_l.dtype)
-        v_l[:, pos] = v[:, 0].to(v_l.dtype)
+        shd.write_seq(k_l, pos, k.to(k_l.dtype))
+        shd.write_seq(v_l, pos, v.to(v_l.dtype))
+        k_l = logical(k_l, "cache_batch", "cache_seq", "cache_kv_heads", None)
+        v_l = logical(v_l, "cache_batch", "cache_seq", "cache_kv_heads", None)
         o = ops.decode_attention(q[:, 0], k_l, v_l, kv_len)
         h = h + o.reshape(B, 1, -1) @ p["wo"]
         if "xk" in cache:
@@ -832,8 +969,8 @@ def _decode_hybrid(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         q, k, v = _project_qkv(cfg, p, x)
         q = L.apply_rope(q, rp, cfg.rope_theta)
         k = L.apply_rope(k, rp, cfg.rope_theta)
-        k_c[t, :, pos % win] = k[:, 0].to(k_c.dtype)
-        v_c[t, :, pos % win] = v[:, 0].to(v_c.dtype)
+        shd.write_seq(k_c[t], pos % win, k.to(k_c.dtype))
+        shd.write_seq(v_c[t], pos % win, v.to(v_c.dtype))
         o = ops.decode_attention(q[:, 0], k_c[t], v_c[t], kv_len)
         h = h + o.reshape(B, 1, -1) @ p["wo"]
         h = ffn_block(cfg, p, h)

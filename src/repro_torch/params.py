@@ -29,7 +29,8 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import model_shapes
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.model import model_shapes, param_axes
 
 
 def _group(tree: Mapping[str, Any], trainable: bool) -> nn.Module:
@@ -92,6 +93,30 @@ def from_jax_params(np_tree: Mapping[str, Any], *, device="cuda",
         return torch.from_numpy(arr.copy()).to(device=dev, dtype=dtype)
 
     return ModelParams(conv(np_tree), trainable=trainable)
+
+
+def nested(leaves: Mapping[str, Any]) -> Dict[str, Any]:
+    """{key path: leaf} (``layers/wq``, as `ModelParams.leaves` gives it)
+    as nested dicts."""
+    tree: Dict[str, Any] = {}
+    for path, t in leaves.items():
+        *groups, name = path.split("/")
+        node = tree
+        for g in groups:
+            node = node.setdefault(g, {})
+        node[name] = t
+    return tree
+
+
+def distribute_params(params: ModelParams, cfg: ModelConfig, mesh,
+                      rules: "shd.ShardingRules") -> ModelParams:
+    """The same weights as DTensors on `mesh`, each leaf placed by its
+    logical dims (`param_axes`) under `rules`: each rank keeps its own
+    block, and nothing is communicated. Trainable when `params` is."""
+    tree = nested({k: t.detach() for k, t in params.leaves().items()})
+    trainable = any(t.requires_grad for t in params.leaves().values())
+    return ModelParams(shd.distribute_tree(tree, param_axes(cfg), mesh,
+                                           rules), trainable=trainable)
 
 
 # a slice of a stacked leaf above this many elements is drawn in parts

@@ -11,7 +11,8 @@ corrupts the latest checkpoint. numpy has no bf16: a bf16 leaf is stored
 as f32, which holds it exactly, and `restore` casts every leaf to the dtype
 of its counterpart in `like`. `restore(..., device=)` places the leaves on
 another device (saved on the card, restored on the host, or the other
-way); a sharded restore waits for the port of `distributed/`.
+way), and `restore(..., mesh=, placements=)` onto a mesh: the elastic
+path, where a checkpoint saved on one mesh (or none) resumes on another.
 """
 from __future__ import annotations
 
@@ -24,6 +25,10 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Placement
+
+from repro_torch.distributed.sharding import distribute
+from repro_torch.params import nested
 
 
 def _items(tree) -> Iterator[Tuple[str, Any]]:
@@ -39,10 +44,15 @@ def _items(tree) -> Iterator[Tuple[str, Any]]:
     raise TypeError(f"not a tree node: {type(tree).__name__}")
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+def _is_placements(x) -> bool:
+    return isinstance(x, (list, tuple)) and bool(x) and \
+        all(isinstance(p, Placement) for p in x)
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     """{key path: leaf} of a tree of mappings, named tuples and
-    `ModelParams` whose leaves are tensors."""
-    if isinstance(tree, torch.Tensor):
+    `ModelParams` whose leaves are tensors or placement sequences."""
+    if isinstance(tree, torch.Tensor) or _is_placements(tree):
         return {prefix: tree}
     flat = {}
     for key, child in _items(tree):
@@ -120,27 +130,28 @@ def _rebuild(like, leaves: Dict[str, Any], prefix: str = ""):
     kids = {key: _rebuild(child, leaves, f"{prefix}/{key}" if prefix
                           else key) for key, child in _items(like)}
     if hasattr(like, "leaves"):                            # ModelParams
-        tree: Dict[str, Any] = {}
-        for path, t in kids.items():
-            *groups, name = path.split("/")
-            node = tree
-            for g in groups:
-                node = node.setdefault(g, {})
-            node[name] = t
         trainable = any(p.requires_grad for p in like.leaves().values())
-        return type(like)(tree, trainable=trainable)
+        return type(like)(nested(kids), trainable=trainable)
     if isinstance(like, Mapping):
         return {k: kids[str(k)] for k in like}
     return type(like)(*(kids[f".{n}"] for n in like._fields))
 
 
-def restore(directory: str, step: int, like: Any, *,
-            device=None) -> Any:
+def restore(directory: str, step: int, like: Any, *, device=None,
+            mesh=None, placements: Any = None) -> Any:
     """Restore step `step` into the structure of `like`: each leaf takes
     the dtype of its counterpart in `like` and its device, or `device`
     where given (the elastic case: save on one device, resume on another).
-    Raises on a missing key or a shape that differs."""
+    With `mesh` and `placements` (a tree shaped like `like` whose leaves
+    are placement sequences, one per mesh dim: `tree_placements` for the
+    params), each leaf is loaded whole on `device` (or the mesh's device
+    type) and distributed onto the mesh, each rank keeping its own block:
+    the counterpart of the reference's `shardings=`. Raises on a missing
+    key or a shape that differs."""
     path = os.path.join(directory, f"step_{step:08d}")
+    place = _flatten(placements) if placements is not None else {}
+    if place and device is None:
+        device = mesh.device_type
     out = {}
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for key, leaf in _flatten(like).items():
@@ -148,6 +159,7 @@ def restore(directory: str, step: int, like: Any, *,
             if arr.shape != tuple(leaf.shape):
                 raise ValueError(f"{key}: saved {arr.shape}, expected "
                                  f"{tuple(leaf.shape)}")
-            out[key] = torch.from_numpy(arr).to(device=device or leaf.device,
-                                                dtype=leaf.dtype)
+            t = torch.from_numpy(arr).to(device=device or leaf.device,
+                                         dtype=leaf.dtype)
+            out[key] = distribute(t, mesh, place[key]) if place else t
     return _rebuild(like, out)

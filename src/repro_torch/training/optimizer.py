@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Tuple
 
 import torch
 
@@ -49,9 +49,10 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_state(params) -> AdamWState:
     """Zero m and v in f32 for every leaf of `params` (a `ModelParams`),
-    and step 0, on the params' device."""
+    and step 0, on the params' device; a DTensor leaf's m and v take its
+    placements."""
     leaves = params.leaves()
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32)
              for k, p in leaves.items()}
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=params.device),
@@ -89,3 +90,20 @@ def apply_updates(cfg: AdamWConfig, params, grads: Dict[str, torch.Tensor],
         p.copy_(p32 - lr * delta)
     return params, AdamWState(step=step, m=state.m, v=state.v), \
         {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_axes(params_axes: Mapping[str, Any]) -> AdamWState:
+    """Logical axes of `AdamWState` given the params' axes (`param_axes`):
+    m and v keyed by leaf path as the state keys them, each with its
+    parameter's dims (ZeRO: the same layout as the params), and the step a
+    scalar. The reference's `opt_state_axes`
+    (src/repro/training/optimizer.py:88)."""
+    def flat(tree, prefix=""):
+        out = {}
+        for k in sorted(tree):
+            path = f"{prefix}/{k}" if prefix else k
+            out.update(flat(tree[k], path) if isinstance(tree[k], Mapping)
+                       else {path: tree[k]})
+        return out
+    axes = flat(params_axes)
+    return AdamWState(step=(), m=axes, v=dict(axes))

@@ -1030,3 +1030,76 @@ def test_restart_on_the_card_is_bit_exact(card):
     assert out.returncode == 0, out.stderr[-3000:]
     same, n = map(int, out.stdout.split()[-2:])
     assert n == 3 * 10 and same == n, out.stdout
+
+
+_SHARDED = """
+import json, sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard
+from repro_torch.distributed.sharding import distribute
+from repro_torch.kernels import ops
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("nccl", store=dist.FileStore(sys.argv[1], 1),
+                        rank=0, world_size=1)
+mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+gen = torch.Generator(device="cuda").manual_seed(0)
+
+def randn(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+out = {}
+q, k, v = randn(2, 200, 8, 128), randn(2, 700, 2, 128), randn(2, 700, 2, 128)
+heads = [Shard(0), Shard(2)]             # batch on data, heads on model
+kw = dict(q_offset=450, kv_len=650, causal=True)
+want = ops.prefill_attention(q, k, v, **kw)
+ops.reset_counts()
+got = ops.prefill_attention(distribute(q, mesh, heads),
+                            distribute(k, mesh, heads),
+                            distribute(v, mesh, heads), **kw)
+out["prefill"] = [ops.counts(), torch.equal(got.full_tensor(), want),
+                  [str(p) for p in got.placements]]
+qd = randn(4, 32, 128)
+kc, vc = randn(4, 4096, 8, 128), randn(4, 4096, 8, 128)
+lens = torch.tensor([1, 1000, 2600, 4096], device="cuda", dtype=torch.int32)
+want = ops.decode_attention(qd, kc, vc, lens)
+ops.reset_counts()
+seq = [Shard(0), Shard(1)]               # serve_rules' cache: seq on model
+got = ops.decode_attention(distribute(qd, mesh, [Shard(0), Shard(1)]),
+                           distribute(kc, mesh, seq),
+                           distribute(vc, mesh, seq), lens)
+out["decode"] = [ops.counts(), torch.equal(got.full_tensor(), want),
+                 [str(p) for p in got.placements]]
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_dtensor_attention_launches_the_kernels(card, tmp_path):
+    """On a 1-rank NCCL (data 1, model 1) mesh, DTensors through
+    `ops.prefill_attention` and `ops.decode_attention` reach the kernels on
+    their local shards (a sequence-sharded cache gathered first), launch
+    each once with no plain version, and equal the plain-tensor call. In a
+    process of its own: the group is the process's default one."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", _SHARDED,
+                          str(tmp_path / "store")],
+                         env=dict(os.environ, PYTHONPATH=str(src)),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    for name, kernel, plain in (
+            ("prefill", "flash_prefill_attention",
+             "chunked_prefill_attention_ref"),
+            ("decode", "flash_decode_attention", "decode_attention_ref")):
+        counts_, equal, place = got[name]
+        assert counts_[kernel] == 1 and counts_[plain] == 0, got
+        assert equal and place == ["S(0)", "S(1)" if name == "decode"
+                                   else "S(2)"], got
