@@ -227,12 +227,38 @@ Phases; the first failure exits non-zero and prints no result:
 17. the simulator against the card (prints only): the cost model's TTFT
     of a lone Llama3-8B prompt on `sim.hardware.H100` at phase 4's lengths
     beside phase 4's measured TTFT, with the ratio.
+18. the examples (`examples/*_torch.py`, through their own functions) at
+    Llama3-8B's published width in bf16, random weights from seed 0, drawn
+    again after phase 11 released them, launch counters zeroed before each
+    run and read after its drain. (a) quickstart: A (4096 tokens) is
+    preempted by B at least once and its resumed logits are `torch.equal`
+    to a solo run; the blocking time beside one operator's mean time from
+    the profile. (b) serve_trace: S-EDF and FCFS, 12 requests each, both
+    reports; both kernels on their Hopper bodies, no plain version. (c)
+    serve_cluster --real with 4 prefill instances (least-loaded), 2 decode
+    instances with migration, decode batch 4, prompts from seed 3: a
+    fault-free run under the hang watchdog (8x the slowest profiled
+    prompt for each of the 6 instances) must fire it zero times; the
+    same prompts under a plan of churn's crash moved to prefill[0]
+    (which holds its first request until then, so the crash strands it
+    with its segment still to run on the instance's stream) and gray's
+    hang moved to decode[0] must lose no request, retry at least once,
+    fire the watchdog at least once, and give every request's first-token
+    logits `torch.equal` to the fault-free run's (any that is not is
+    counted and held to phase 9's bf16 bound, its token equal); a
+    --spec-decode run of 8 requests must launch the verify kernel; each
+    prints decode_migrations and the per-instance dispatch counts. (d) train_quickstart --big, in a
+    process of its own under deterministic algorithms: 40 steps straight
+    against 20, a kill, and a rerun that resumes from the step-20
+    checkpoint, every parameter and m, v `torch.equal`.
+    `--examples-only` builds the kernels and runs this phase alone.
 
 The line before the last holds the kernels' record: each kernel's launches
 by path (each path's counters zeroed just before it ran) and their sum, the
 times at Llama3-8B's main-path shape and, under "k4", at Qwen3-30B-A3B's,
-under "hd256" at RecurrentGemma-9B's, under "phase13" at phase 13's; the
-last line is `{"ok": true, "device": {...}}`.
+under "hd256" at RecurrentGemma-9B's, under "phase13" at phase 13's
+(phase 18's runs are among the paths); the last line is `{"ok": true,
+"device": {...}}`.
 """
 from __future__ import annotations
 
@@ -244,6 +270,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -2631,6 +2658,323 @@ def sim_phase(profile: dict) -> None:
               f"{measured / predicted:.3f}", flush=True)
 
 
+def load_example(name):
+    """`examples/<name>.py` as a module (the directory has no
+    `__init__`)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def hold_until_crash(inst):
+    """Make `inst`'s pool worker wait before its first segment until the
+    instance is crashed or the scheduler preempts the task (a worker acks
+    at its next operator boundary), so that a crash of this instance
+    strands a request with its segment still to run on the instance's
+    stream; the segment then runs as a zombie. Without it a prefill can
+    finish inside the arrival gap before the crash and leave nothing to
+    strand (tests/test_torch_examples.py uses it too)."""
+    import threading
+    step, released = inst.pool._step, threading.Event()
+
+    def held(task):
+        deadline = time.monotonic() + 60.0
+        while not released.is_set() and inst.healthy \
+                and not inst.pool.signal.check() \
+                and time.monotonic() < deadline:
+            time.sleep(0.001)
+        released.set()
+        return step(task)
+    inst.pool._step = held
+
+
+# phase 18's chaos plan: churn's crash (a third into the trace) on prefill
+# instance 0, which least-loaded dispatch fills first, and gray's hang (a
+# quarter in) moved from a prefill to decode instance 0 and lasting the
+# rest of the 40 s trace, so that the example's cap, twice the watchdog
+# period, sets its length
+CHAOS_18 = (
+    dict(time=40.0 / 3, instance=0, kind="crash", duration=40.0 / 3),
+    dict(time=10.0, instance=0, kind="hang", duration=30.0,
+         target="decode"),
+)
+
+
+def read_counts(ops, kcounts) -> dict:
+    """The launch counters since the last reset, the split-KV body's
+    included."""
+    from repro_torch.kernels.decode_attn import BODY
+    return dict(ops.counts(), **kcounts.read([BODY]))
+
+
+def cluster_run(ops, kcounts, sc, argv, params, watchdog_s, hold=False):
+    """One real-mode run of examples/serve_cluster_torch.py with the
+    launch counters zeroed just before it: returns the report, the
+    requests, each request's first-token logits, the counts and the
+    seconds it took."""
+    args = sc.parser().parse_args(argv)
+    cfg, _, ex, profile = sc.load_model(args, params=params)
+    cl = sc.Cluster(args, cfg, params, ex, profile, watchdog_s=watchdog_s)
+    if hold:
+        hold_until_crash(cl.insts[0])
+    try:
+        ops.reset_counts()
+        t0 = time.monotonic()
+        try:
+            rep, reqs = sc.serve(args, cl, drain_timeout=180.0)
+        except SystemExit as exc:                  # the drain timed out
+            fail(f"phase 18: {argv}: {exc}; watchdog log "
+                 f"{cl.proxy.watchdog_log}")
+        took = time.monotonic() - t0
+        counts = read_counts(ops, kcounts)
+        logits = cl.prefill_logits(reqs)
+        sc.print_real(args, cl, rep)
+        decoded = sum(len(d.finished) for d in cl.decs)
+        steps = [t * 1e3 for d in cl.decs for t in d.step_samples]
+    finally:
+        cl.shutdown()
+    fires = [(kind, k, round(stall, 3)) for kind, k, stall, _ in
+             cl.proxy.watchdog_log]
+    print(f"  {took:.1f} s; dispatched by instance "
+          f"{rep['dispatched_by_instance']}, decode_migrations "
+          f"{rep['decode_migrations']}, retries {rep['retries']}, watchdog "
+          f"fires {rep['watchdog_fires']} {fires}, decoded {decoded}; "
+          f"decode step ms (synchronised) p50 {statistics.median(steps):.1f} "
+          f"max {max(steps):.1f} over {len(steps)} steps", flush=True)
+    if rep["stranded_rids"] or rep["n_requests"] != args.requests \
+            or decoded + rep["lost_requests"] + rep["shed_requests"] \
+            != args.requests:
+        fail(f"phase 18: {argv}: not every request terminal: {rep}")
+    return rep, reqs, logits, counts, took
+
+
+def examples_phase(torch, ops, kcounts, device="cuda"):
+    """Phase 18: the port's examples at Llama3-8B's published width in
+    bf16 (on `device` "cpu", a rehearsal at the examples' tiny config in
+    f32, where the launch checks fail). Returns the launch counts by path
+    for the kernels' record."""
+    import gc
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attn import BODY
+    from repro_torch.launch.serve import draw_params
+    full = device == "cuda"
+    qs = load_example("quickstart_torch")
+    cfg = get_config("llama3_8b") if full else qs.config()
+    t_phase = time.monotonic()
+    params = draw_params(cfg, device, 0)
+    by_path = {}
+
+    def launches(label, counts, need):
+        c = path_launches(label, counts, need)
+        body = counts[BODY]
+        if body != counts["flash_decode_attention"] + \
+                counts["flash_verify_attention"]:
+            fail(f"{label}: {body} launches of the split-KV body for "
+                 f"{counts['flash_decode_attention']} decode and "
+                 f"{counts['flash_verify_attention']} verify launches")
+        by_path[f"{label} (phase 18)"] = dict(
+            c, flash_verify_attention=counts["flash_verify_attention"])
+
+    # (a) the quickstart: A preempted, resumed bit-exactly
+    t0 = time.monotonic()
+    ex, profile, pred = qs.setup(params, cfg)
+    ops.reset_counts()
+    res = qs.walkthrough(params, cfg, ex, pred)
+    counts = read_counts(ops, kcounts)
+    op_ms = profile[qs.LONG] / res["segments"] * 1e3
+    print(f"(a) quickstart: profile "
+          f"{json.dumps({n: round(t, 4) for n, t in profile.items()})} s; "
+          f"B after {res['delay']:.3f} s: B TTFT {res['b'].ttft:.4f} s, A "
+          f"TTFT {res['a'].ttft:.4f} s, {res['preemptions']} preemption(s), "
+          f"blocking mean {res['blocking_mean'] * 1e3:.2f} ms max "
+          f"{res['blocking_max'] * 1e3:.2f} ms beside one operator "
+          f"{op_ms:.3f} ms (TTFT {qs.LONG} / {res['segments']} segments), "
+          f"rounds {res['rounds']}, bit-exact {res['bit_exact']}; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    if res["preemptions"] < 1:
+        fail("phase 18 (a): request A was not preempted")
+    if not res["bit_exact"]:
+        fail("phase 18 (a): A's resumed logits differ from the solo run's")
+    launches("quickstart", counts, ("flash_prefill_attention",))
+    del ex, res
+
+    # (b) serve_trace: S-EDF and FCFS over the scaled QwenTrace mix
+    st = load_example("serve_trace_torch")
+    t0 = time.monotonic()
+    ex, profile, pred = st.setup(params, cfg)
+    print(f"(b) serve_trace: profile "
+          f"{json.dumps({n: round(t, 4) for n, t in profile.items()})} s",
+          flush=True)
+    for policy in ("s-edf", "fcfs"):
+        ops.reset_counts()
+        rep = st.run(policy, params, cfg, pred, ex, 12)
+        counts = read_counts(ops, kcounts)
+        st.print_report(policy, rep)
+        if rep["decoded"] != rep["n_requests"] or rep["n_requests"] != 12:
+            fail(f"phase 18 (b) {policy}: decoded {rep['decoded']} of "
+                 f"{rep['n_requests']}")
+        launches(f"serve_trace {policy}", counts,
+                 ("flash_prefill_attention", "flash_decode_attention"))
+    print(f"  (b) took {time.monotonic() - t0:.1f} s", flush=True)
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) serve_cluster real mode: 4 prefill + 2 decode instances
+    sc = load_example("serve_cluster_torch")
+    base = ["--real", *(["--full-config"] if full else ["--device", "cpu"]),
+            "--instances", "4", "--policy",
+            "least-loaded", "--decode-migration", "--decode-max-batch", "4",
+            "--requests", "12", "--seed", "3"]
+    args = sc.parser().parse_args(base)
+    _, _, ex, profile = sc.load_model(args, params=params)
+    wd = sc.watchdog_period(args, profile)
+    del ex
+    print(f"(c) serve_cluster --real: profile "
+          f"{json.dumps({n: round(t, 4) for n, t in profile.items()})} s; "
+          f"watchdog period {wd:.3f} s", flush=True)
+    print("  (c1) fault-free, the watchdog on", flush=True)
+    free = cluster_run(ops, kcounts, sc, base, params, wd)
+    if free[0]["watchdog_fires"] != 0:
+        fail(f"phase 18 (c1): {free[0]['watchdog_fires']} watchdog fires "
+             "on a fault-free run")
+    if free[0]["retries"] != 0:
+        fail(f"phase 18 (c1): {free[0]['retries']} retries without faults")
+    launches("cluster fault-free", free[3],
+             ("flash_prefill_attention", "flash_decode_attention"))
+    from repro_torch.core.faults import FaultEvent, FaultPlan
+    plan_path = ROOT / "build" / "chaos_18.json"
+    plan_path.parent.mkdir(exist_ok=True)
+    plan_path.write_text(FaultPlan(events=tuple(
+        FaultEvent(**e) for e in CHAOS_18)).to_json())
+    print("  (c2) the same prompts under churn's crash of prefill[0] and "
+          "gray's hang moved to decode[0]", flush=True)
+    chaos = cluster_run(ops, kcounts, sc, base + ["--chaos", str(plan_path)],
+                        params, wd, hold=True)
+    rep = chaos[0]
+    if rep["lost_requests"] != 0 or rep["retries"] < 1 \
+            or rep["watchdog_fires"] < 1:
+        fail(f"phase 18 (c2): lost {rep['lost_requests']}, retries "
+             f"{rep['retries']}, watchdog fires {rep['watchdog_fires']}")
+    launches("cluster chaos", chaos[3],
+             ("flash_prefill_attention", "flash_decode_attention"))
+    equal = unequal = 0
+    for i, (want_rows, got_rows) in enumerate(zip(free[2], chaos[2])):
+        want = want_rows[0]
+        for got in got_rows:
+            if torch.equal(got, want):
+                equal += 1
+                continue
+            unequal += 1
+            bf16_bound(got, want, f"request {i}'s first-token logits")
+            if int(got.argmax()) != int(want.argmax()):
+                fail(f"phase 18 (c2): request {i}'s first token "
+                     f"{int(got.argmax())} differs from the fault-free "
+                     f"{int(want.argmax())}")
+    print(f"  first-token logits: {equal} completions torch.equal to the "
+          f"fault-free run's, {unequal} not (held to the bf16 bound); "
+          f"every first token equal", flush=True)
+    print("  (c3) --spec-decode, 8 requests", flush=True)
+    spec = cluster_run(ops, kcounts, sc, base[:-4] + ["--requests", "8", "--seed",
+                                                 "3", "--spec-decode"],
+                       params, 0.0)
+    if spec[0]["spec"]["spec_steps"] <= 0:
+        fail("phase 18 (c3): no verify step ran")
+    launches("cluster spec", spec[3],
+             ("flash_prefill_attention", "flash_decode_attention",
+              "flash_verify_attention"))
+    del free, chaos, spec, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) train_quickstart --big: straight against killed and resumed
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--train-quickstart",
+         device],
+        env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+        capture_output=True, text=True, timeout=600)
+    print(out.stdout, end="", flush=True)
+    if out.returncode != 0:
+        fail(f"phase 18 (d) (rc {out.returncode}): {out.stderr[-4000:]}")
+    print(f"  (d) took {time.monotonic() - t0:.1f} s", flush=True)
+    print(f"phase 18 took {time.monotonic() - t_phase:.1f} s", flush=True)
+    return by_path
+
+
+TRAIN_18_STEPS = 40
+
+
+def train_quickstart(torch, device="cuda") -> None:
+    """Phase 18 (d), in a process of its own under deterministic
+    algorithms: examples/train_quickstart_torch.py at --big, 40 steps
+    straight, against 20 steps + a kill + a rerun that resumes from the
+    step-20 checkpoint; every parameter and m, v `torch.equal`."""
+    import shutil
+    torch.use_deterministic_algorithms(True)
+    tq = load_example("train_quickstart_torch")
+    cfg = tq.config(big=True)
+    n = TRAIN_18_STEPS
+    root = ROOT / "build" / "train_quickstart"
+    shutil.rmtree(root, ignore_errors=True)
+
+    class Killed(Exception):
+        pass
+
+    def kill_at(step):
+        def log(msg):
+            if msg.startswith(f"step {step}:"):
+                raise Killed
+        return log
+
+    losses = []
+
+    def keep(msg):
+        losses.append(msg)
+
+    try:
+        t0 = time.monotonic()
+        params = tq.draw(cfg, device)
+        n_params = sum(p.numel() for p in params.parameters())
+        p_full, s_full, info = tq.train(cfg, params, steps=n,
+                                        ckpt_dir=str(root / "straight"),
+                                        log=keep)
+        t1 = time.monotonic()
+        print(f"  (d) {cfg.name} --big: {n_params / 1e6:.1f}M params f32; "
+              f"{n} steps straight in {t1 - t0:.1f} s, median step "
+              f"{info['median_step_time'] * 1e3:.2f} ms, final loss "
+              f"{info['final_loss']:.4f}; {losses[0]} ... {losses[-1]}",
+              flush=True)
+        run = str(root / "killed")
+        try:
+            tq.train(cfg, tq.draw(cfg, device), steps=n, ckpt_dir=run,
+                     log=kill_at(n // 2))
+            fail("phase 18 (d): the run was not killed")
+        except Killed:
+            pass
+        resumed = []
+        params, state, _ = tq.train(cfg, tq.draw(cfg, device), steps=n,
+                                    ckpt_dir=run, log=resumed.append)
+        pairs = [(p_full.leaves(), params.leaves()), (s_full.m, state.m),
+                 (s_full.v, state.v)]
+        equal = sum(torch.equal(a[k], b[k]) for a, b in pairs for k in a)
+        total = sum(len(a) for a, _ in pairs)
+        print(f"  (d) killed at step {n // 2}, rerun: {resumed[0]!r}; "
+              f"{equal} of {total} leaves (params, m, v) torch.equal, step "
+              f"{int(state.step)}; {time.monotonic() - t1:.1f} s",
+              flush=True)
+        if resumed[0] != f"auto-resumed from checkpoint step {n // 2}":
+            fail(f"phase 18 (d): the rerun did not resume: {resumed[0]}")
+        if equal != total or int(state.step) != n:
+            fail(f"phase 18 (d): {total - equal} of {total} leaves differ "
+                 "from the straight run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def port_request(n):
     from repro_torch.core import Request
     return Request(num_tokens=n, slo=600.0, arrival=time.monotonic())
@@ -2644,6 +2988,10 @@ def main() -> None:
                     help="print nvcc -Xptxas -v resource usage")
     ap.add_argument("--train-determinism", action="store_true",
                     help=argparse.SUPPRESS)       # phase 14's own process
+    ap.add_argument("--train-quickstart", metavar="DEVICE",
+                    help=argparse.SUPPRESS)       # phase 18 (d)'s process
+    ap.add_argument("--examples-only", action="store_true",
+                    help="build, then phase 18 alone (no result line)")
     args = ap.parse_args()
 
     import torch
@@ -2671,6 +3019,9 @@ def main() -> None:
         fail(f"the port is not importable from {ROOT / 'src'}: {exc}")
     if args.train_determinism:
         train_determinism(torch)
+        return
+    if args.train_quickstart:
+        train_quickstart(torch, args.train_quickstart)
         return
     import numpy as np
     import torch.nn.functional as F
@@ -2713,6 +3064,12 @@ def main() -> None:
                               for t in (1, 2)) + " bytes (1 / 2+ query tiles)"
         for name in ("flash_prefill", "decode_attn"):
             ptxas_report(build.LOGS.get(name, ""), smem)
+    if args.examples_only:
+        phase("18. the examples at Llama3-8B's published width")
+        by_path = examples_phase(torch, ops, kcounts)
+        print(f"\n--examples-only: launches {json.dumps(by_path)} "
+              f"({time.monotonic() - t_start:.1f} s)")
+        return
 
     # --- 2. kernels against their plain versions ----------------------------
     phase("2. kernels against their plain versions on the card")
@@ -3326,6 +3683,14 @@ def main() -> None:
           "4's measured TTFT")
     sim_phase(profile4)
 
+    # --- 18. the examples ---------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("18. the examples at Llama3-8B's published width: quickstart, "
+          "serve_trace, serve_cluster --real (4 prefill + 2 decode "
+          "instances, chaos), train_quickstart --big")
+    example_counts = examples_phase(torch, ops, kcounts)
+
     kernels = []
     for name, route, src, replaces, main in (
             ("flash_prefill_attention", "cuda",
@@ -3354,6 +3719,9 @@ def main() -> None:
         if name == "flash_prefill_attention":
             by_path.update(train_counts)
         by_path.update(sharded_counts.get(name, {}))
+        for path, c in example_counts.items():
+            if c[name]:
+                by_path[path] = c[name]
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         entry = {"name": name, "route": route, "source": src,

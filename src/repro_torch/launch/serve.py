@@ -72,6 +72,17 @@ def ttft_profile(executor: SegmentedPrefill, lengths: Sequence[int]
     return out
 
 
+def draw_params(cfg: ModelConfig, device="cuda", seed: int = 0,
+                dtype: Optional[torch.dtype] = None):
+    """Random weights for `cfg` drawn from `seed` on `device`, in bf16 on
+    the card and f32 on the CPU unless `dtype` says otherwise."""
+    dev = resolve_device(device)
+    if dtype is None:
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return init_params(cfg, gen, device=dev, dtype=dtype)
+
+
 def build(*, arch: str = "llama3_8b", full_config: bool = False,
           policy: str = "s-edf", granularity: str = "op", chunk: int = 512,
           batch_budget: int = 4096, max_seq: int = 4096,
@@ -86,15 +97,11 @@ def build(*, arch: str = "llama3_8b", full_config: bool = False,
     instance (the self-drafting n-gram drafter); ``prefix_share`` /
     ``prefix_cache_blocks`` give the prefill instance its prefix-sharing
     KV cache of that many 128-token blocks."""
-    dev = resolve_device(device)
     cfg = get_config(arch) if full_config else get_tiny_config(arch)
-    if dtype is None:
-        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(cfg, gen, device=dev, dtype=dtype)
+    params = draw_params(cfg, device, seed, dtype)
     executor = SegmentedPrefill(params, cfg, max_seq=max_seq,
                                 granularity=granularity, chunk_tokens=chunk,
-                                cache_dtype=dtype)
+                                cache_dtype=params.dtype)
     profile = ttft_profile(
         executor, sorted({n for n in (256, 1024, max_seq) if n <= max_seq}))
     pred = TTFTPredictor.fit(list(profile), list(profile.values()))

@@ -251,6 +251,12 @@ class DecodeInstance:
             job.target = req.output_tokens if req.output_tokens > 0 \
                 else self.decode_tokens
         with self._cv:
+            if self.healthy and not self._waiting and not self._resident \
+                    and self._admitting == 0:
+                # beyond the reference: work arriving at an idle instance
+                # restarts its progress clock, or the Proxy's watchdog would
+                # measure the idle time before it as a stall
+                self.last_progress = self.clock()
             job.order = self._order
             self._order += 1
             self._waiting.append(job)
@@ -360,6 +366,16 @@ class DecodeInstance:
             return
         raise inj if isinstance(inj, BaseException) \
             else RuntimeError(str(inj))
+
+    def _wakes_idle(self) -> bool:
+        """Beyond the reference: a pending injected crash wakes an idle
+        worker, a pending hang waits for work. A hang stalls decoding, and
+        the Proxy's watchdog restarts an idle instance's progress clock when
+        work reaches it, so a hang slept out while idle would hide its
+        first part from the watchdog."""
+        inj = self._inject
+        return inj is not None and not (
+            isinstance(inj, tuple) and inj and inj[0] == "hang")
 
     def inject_fault(self, fault) -> None:
         with self._cv:
@@ -516,9 +532,9 @@ class DecodeInstance:
         while True:
             with self._cv:
                 while not self._waiting and not self._shutdown \
-                        and self._inject is None:
+                        and not self._wakes_idle():
                     self._cv.wait(0.1)
-                if not self._waiting and self._inject is None:
+                if not self._waiting and not self._wakes_idle():
                     return                     # shutdown with an empty queue
             self._check_inject()
             with self._cv:
@@ -904,7 +920,7 @@ class DecodeInstance:
         while True:
             with self._cv:
                 while not self._waiting and not self._resident \
-                        and not self._shutdown and self._inject is None:
+                        and not self._shutdown and not self._wakes_idle():
                     self._cv.wait(0.1)
                 if self._shutdown and not self._waiting \
                         and not self._resident:

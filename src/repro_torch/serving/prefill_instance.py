@@ -132,6 +132,11 @@ class PrefillInstance:
     # ------------------------------------------------------------- frontend
     def submit_request(self, req: Request, tokens: np.ndarray) -> None:
         with self._lock:
+            if self.healthy and not self._busy():
+                # beyond the reference: work arriving at an idle instance
+                # restarts its progress clock, or the Proxy's watchdog would
+                # measure the idle time before it as a stall
+                self.last_progress = self.clock()
             self._tokens[req.rid] = np.asarray(tokens)
             self._arriving += 1
         self.monitor.publish(Event(time=self.clock(), kind=EventKind.ARRIVAL,
@@ -451,6 +456,14 @@ class PrefillInstance:
                 head.ops_done = suspended.prefill_task.cursor
                 self._preempted[head.rid] = suspended
                 self._running = None
+            elif self.pool.current() is self._running:
+                # beyond the reference: not acknowledged and still the
+                # pool's task, so the worker is stuck inside one operator
+                # past the timeout. Strand it like a crash (the scheduler
+                # loop's handler); dropping `_running` here would orphan
+                # its requests, which no strand could then hand back.
+                raise TimeoutError("preemption not acknowledged: the pool "
+                                   "worker is stuck in an operator")
             else:
                 # completed concurrently; the COMPLETION event will arrive.
                 self._running = None

@@ -34,7 +34,10 @@ conservative and consistent with the simulated ones (docs/SCHEDULING.md).
 Counterpart of src/repro/serving/proxy.py, the same code on torch tensors:
 the handoff passes each request's cache row as a view of the prefill's KV
 with the event after its last write. The report's ``spec`` key carries the
-speculative-decoding counters (all zeros with spec off).
+speculative-decoding counters (all zeros with spec off), and
+``watchdog_fires`` counts the hangs the watchdog declared, each logged in
+``watchdog_log`` with the stall it saw (beyond the reference, which
+keeps no such record).
 """
 from __future__ import annotations
 
@@ -155,6 +158,9 @@ class Proxy:
         self._wd_scale_dec = [1.0] * len(self.decode_instances)
         self._wd_last_fire: Dict[int, float] = {}
         self._wd_last_fire_dec: Dict[int, float] = {}
+        # (kind, index, seconds without progress, period) of each
+        # instance the watchdog stranded
+        self.watchdog_log: List[tuple] = []
         self._timers: List[threading.Timer] = []
         self._proxy_shutdown = False
 
@@ -479,7 +485,15 @@ class Proxy:
 
     def revive_instance(self, idx: int, kind: str = "prefill") -> None:
         """Delayed rejoin: restart the worker and readmit the instance to
-        the dispatch pool."""
+        the dispatch pool. Beyond the reference: an instance that never
+        went down (a hang the watchdog has not yet caught) is left alone, as
+        its restart would reset its progress clock and hide the hang for
+        another watchdog period."""
+        insts, down = (self.prefill_instances, self._down) \
+            if kind == "prefill" else (self.decode_instances, self._down_dec)
+        with self._load_lock:
+            if idx not in down and getattr(insts[idx], "healthy", False):
+                return
         if kind == "prefill":
             self.prefill_instances[idx].restart()
             with self._load_lock:
@@ -515,6 +529,7 @@ class Proxy:
             if busy and now - progress_ts > wd:
                 scales[k] = min(scales[k] * 2.0, 64.0)
                 last_fire[k] = now
+                self.watchdog_log.append((kind, k, now - progress_ts, wd))
                 obj._on_worker_failure(TimeoutError(
                     f"watchdog: {kind}[{k}] made no progress for "
                     f"{wd:.3f}s"))
@@ -763,6 +778,7 @@ class Proxy:
                 "shed_requests": self.shed_requests,
                 "lost_requests": self.lost_requests,
                 "lost_rids": sorted(self.lost_rids),
+                "watchdog_fires": len(self.watchdog_log),
                 # non-terminal at report time: after a clean drain this MUST
                 # equal lost_rids' complement of nothing — any other rid here
                 # is a stranded request the drain timed out on

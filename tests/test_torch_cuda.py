@@ -1103,3 +1103,115 @@ def test_dtensor_attention_launches_the_kernels(card, tmp_path):
         assert counts_[kernel] == 1 and counts_[plain] == 0, got
         assert equal and place == ["S(0)", "S(1)" if name == "decode"
                                    else "S(2)"], got
+
+
+def test_quickstart_example_resumes_bit_exact_on_the_card(card):
+    """examples/quickstart_torch.py at its tiny config on the card (bf16):
+    B preempts A at an operator boundary, and A's resumed first-token
+    logits are `torch.equal` to an uninterrupted prefill's, through the
+    prefill kernel alone."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.launch.serve import draw_params
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    qs = cs.load_example("quickstart_torch")
+    cfg = qs.config()
+    params = draw_params(cfg, card, 0)
+    ex, _, pred = qs.setup(params, cfg)
+    ops.reset_counts()
+    res = qs.walkthrough(params, cfg, ex, pred)
+    got = ops.counts()
+    assert res["preemptions"] >= 1
+    assert res["bit_exact"]
+    assert got["flash_prefill_attention"] > 0
+    assert got["chunked_prefill_attention_ref"] == 0
+
+
+_MIGRATED = """
+import json
+import numpy as np
+import torch
+from repro_torch.configs.base import get_tiny_config
+from repro_torch.core import Request
+from repro_torch.launch.serve import draw_params
+from repro_torch.models.segments import SegmentedPrefill
+from repro_torch.serving.decode_instance import DecodeInstance, DecodeJob
+
+cfg = get_tiny_config("llama3_8b")
+params = draw_params(cfg, "cuda", 0)
+ex = SegmentedPrefill(params, cfg, max_seq=256, granularity="op",
+                      chunk_tokens=128, cache_dtype=params.dtype)
+prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 200))
+task = ex.start(prompt)
+ex.run_all(task)
+torch.cuda.synchronize()
+st, first = task.state, int(task.logits.argmax(-1)[0])
+done = {"k": st["k_cache"][:, 0:1], "v": st["v_cache"][:, 0:1],
+        "pos": int(st["lens"][0])}
+src = DecodeInstance(params, cfg, decode_tokens=8, decode_max_batch=4)
+dst = DecodeInstance(params, cfg, decode_tokens=8, decode_max_batch=4)
+try:
+    # the receiver first decodes the finished cache itself: its pool,
+    # stream and GEMM handles exist before the migrated job arrives, so no
+    # first-use allocation synchronises the card for it
+    want = Request(num_tokens=200, slo=60.0, output_tokens=8)
+    dst.submit(DecodeJob(request=want, cache=dict(done), first_token=first))
+    assert dst.drain(60.0)
+    producer = torch.cuda.Stream()
+    with torch.cuda.stream(producer):
+        # NaN, then ~0.3 s of spin, then the cache: the host waits for none
+        # of it
+        k = torch.full_like(done["k"], float("nan"))
+        v = torch.full_like(done["v"], float("nan"))
+        torch.cuda._sleep(int(5e8))
+        k.copy_(done["k"])
+        v.copy_(done["v"])
+        ready = torch.cuda.Event()
+        ready.record()
+    src.inject_fault(("hang", 1.0))              # keeps the job queued
+    req = Request(num_tokens=200, slo=60.0, output_tokens=8)
+    src.submit(DecodeJob(request=req, cache={"k": k, "v": v,
+                                             "pos": done["pos"],
+                                             "ready": ready},
+                         first_token=first))
+    moved = src.take([req.rid])
+    in_flight = len(moved) == 1 and moved[0].cache["ready"] is ready \
+        and not ready.query()
+    dst.submit(moved[0])
+    assert dst.drain(60.0)
+    print(json.dumps({"in_flight": in_flight,
+                      "got": dst.outputs[req.rid],
+                      "want": dst.outputs[want.rid]}))
+finally:
+    src.shutdown()
+    dst.shutdown()
+"""
+
+
+def test_migrated_handoff_waits_for_its_producer_on_the_card(card):
+    """A handoff that migrates between decode instances before either
+    ingests it (`DecodeInstance.take`, as the Proxy's `rebalance_decodes`
+    moves queued jobs) carries its cache and the producing stream's
+    `ready` event. Here the producer is still writing the cache (NaN
+    behind a spin) when the job moves, so the receiver must wait on that
+    event, not on its own stream: its tokens must equal its own decode of
+    the finished cache. In a process of its own with 32 hardware queues,
+    so that no queue the two streams share orders them anyway."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", _MIGRATED],
+                         env=dict(os.environ, PYTHONPATH=str(src),
+                                  CUDA_DEVICE_MAX_CONNECTIONS="32"),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["in_flight"], got
+    assert got["got"] == got["want"], got

@@ -196,6 +196,129 @@ def test_runtime_hang_detected_by_watchdog(chaos_model):
         proxy.shutdown()
 
 
+def test_watchdog_does_not_count_idle_time_as_a_stall(chaos_model):
+    """Beyond the reference: an instance's progress clock restarts when
+    work reaches it idle. Both instances sit idle for 2x the watchdog
+    period, then one request arrives whose first step on each instance
+    takes half a period (the scheduler's ARRIVAL round, the decode
+    ingest): honest work, so the watchdog must not fire. Without the
+    restart it measures the idle time as a stall and strands both."""
+    params, ex, pred, _ = chaos_model
+    toks = np.zeros((1, 256), np.int64)
+    ex.run_all(ex.start(toks))                      # warm
+    t0 = time.monotonic()
+    ex.run_all(ex.start(toks))
+    wd = min(4.0, max(0.4, 25 * (time.monotonic() - t0)))
+    inst = _mk_prefill(params, ex, pred)
+    dec = DecodeInstance(params, CFG, decode_tokens=4, policy="fcfs")
+
+    def slow_first(obj, name):
+        fn, calls = getattr(obj, name), []
+
+        def slow(*a, **kw):
+            if not calls:
+                calls.append(1)
+                time.sleep(wd / 2)
+            return fn(*a, **kw)
+        setattr(obj, name, slow)
+    slow_first(inst, "_handle_event")
+    slow_first(dec, "_ingest")
+    proxy = Proxy([inst], [dec], watchdog_s=wd)
+    try:
+        time.sleep(2 * wd)
+        r = Request(num_tokens=128, slo=30.0, arrival=time.monotonic(),
+                    output_tokens=4, tbt_slo=5.0)
+        proxy.submit(r, np.arange(128) % CFG.vocab_size)
+        assert proxy.drain(max(60.0, 30 * wd))
+        rep = proxy.report()
+        assert rep["watchdog_fires"] == 0
+        assert rep["retries"] == 0 and r.finish_time is not None
+    finally:
+        proxy.shutdown()
+
+
+def test_decode_hang_waits_for_work_and_a_revive_does_not_hide_it(
+        chaos_model):
+    """Beyond the reference: a hang injected into an idle DecodeInstance
+    takes effect when work reaches it, and a revive that lands mid-hang on
+    the still-healthy instance leaves it alone. Before, the idle worker
+    slept the hang out before its work came and the revive restarted its
+    progress clock, so the watchdog saw no stall (a chaos run of
+    chip_smoke.py phase 18 with no fire). Here the work comes only after
+    the whole hang, and the revive lands as it arrives."""
+    params, ex, pred, _ = chaos_model
+    toks = np.zeros((1, 256), np.int64)
+    ex.run_all(ex.start(toks))                      # warm
+    t0 = time.monotonic()
+    ex.run_all(ex.start(toks))
+    wd = min(4.0, max(0.4, 25 * (time.monotonic() - t0)))
+    hang = 3 * wd
+    inst = _mk_prefill(params, ex, pred)
+    dec = DecodeInstance(params, CFG, decode_tokens=4, policy="fcfs")
+    proxy = Proxy([inst], [dec], watchdog_s=wd, auto_restart_s=wd,
+                  retry_backoff=0.02, retry_backoff_cap=0.2)
+    try:
+        dec.inject_fault(("hang", hang))
+        time.sleep(hang + wd / 2)
+        r = Request(num_tokens=128, slo=60.0, arrival=time.monotonic(),
+                    output_tokens=4, tbt_slo=5.0)
+        proxy.submit(r, np.arange(128) % CFG.vocab_size)
+        deadline = time.monotonic() + 30.0
+        while dec.idle() and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert not dec.idle()                   # the handoff reached dec
+        ts = dec.progress_ts
+        proxy.revive_instance(0, "decode")
+        assert dec.progress_ts == ts            # the clock was left alone
+        assert proxy.drain(max(60.0, 30 * wd))
+        rep = _assert_chaos_invariants("idle hang", proxy, [dec], [r])
+        assert rep["watchdog_fires"] >= 1 and rep["retries"] >= 1
+        assert rep["lost_requests"] == 0
+    finally:
+        proxy.shutdown()
+
+
+def test_unacknowledged_preemption_strands_the_stuck_task(chaos_model):
+    """Beyond the reference: a pool worker stuck inside one operator past
+    the preemption timeout. An urgent request makes S-EDF preempt the
+    long one; the worker never acks, so the instance strands both
+    requests to `on_fault` instead of dropping the stuck task (whose
+    request no strand could then hand back)."""
+    params, ex, pred, _ = chaos_model
+    inst = _mk_prefill(params, ex, pred)
+    stuck, release = threading.Event(), threading.Event()
+    step = inst.pool._step
+
+    def held(task):
+        stuck.set()
+        release.wait(30.0)
+        return step(task)
+    inst.pool._step = held
+    preempt = inst.pool.preempt_current
+    inst.pool.preempt_current = lambda timeout=10.0: preempt(timeout=0.3)
+    got = []
+    done = threading.Event()
+
+    def on_fault(stranded, exc):
+        got.append(([r.rid for r in stranded], exc))
+        done.set()
+    inst.on_fault = on_fault
+    try:
+        a = Request(num_tokens=400, slo=60.0, arrival=time.monotonic())
+        inst.submit_request(a, np.arange(400) % CFG.vocab_size)
+        assert stuck.wait(30.0)
+        b = Request(num_tokens=64, slo=0.5, arrival=time.monotonic())
+        inst.submit_request(b, np.arange(64) % CFG.vocab_size)
+        assert done.wait(30.0)
+        (rids, exc), = got
+        assert sorted(rids) == sorted([a.rid, b.rid])
+        assert isinstance(exc, TimeoutError)
+        assert not inst.healthy
+    finally:
+        release.set()
+        inst.shutdown()
+
+
 def test_runtime_naive_mode_loses_stranded(chaos_model):
     """recovery="none" is the contrast case: a crash with no revive loses
     exactly the stranded requests, and the report names them."""

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package
 `repro`, and each framework-free module it copied from `repro` is the
-original with only its `repro.` imports rewritten to `repro_torch.`."""
+original with only its `repro.` imports rewritten to `repro_torch.`. The
+same holds for the port's examples (`examples/*_torch.py`) and for
+`chip_smoke.py`, which run where JAX is not installed."""
 import os
 import re
 import subprocess
@@ -12,6 +14,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
+# the scripts beside the package that run the port alone
+SCRIPTS = sorted((ROOT / "examples").glob("*_torch.py")) + \
+    [ROOT / "chip_smoke.py"]
 
 COPIED = [
     "core/__init__.py", "core/request.py", "core/events.py",
@@ -38,12 +43,16 @@ NO_COUNTERPART = {
 }
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"script{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path)
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), leaked)
@@ -52,10 +61,12 @@ print(len(names), leaked)
 
 def test_importing_every_module_leaves_out_jax_and_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL,
+                          *map(str, SCRIPTS)], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 20, out          # every module of the package
+    # every module of the package, the five examples and chip_smoke.py
+    assert int(out[0]) >= 26, out
     assert out[1].strip() == "[]", out[1]
 
 
@@ -65,6 +76,8 @@ def test_no_source_mentions_jax_or_repro_imports():
                          re.MULTILINE)
     sources = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu")]
     assert len(sources) >= 25
+    assert len(SCRIPTS) == 6
+    sources += SCRIPTS
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []
