@@ -23,15 +23,21 @@ so the Execution Pool can bound how far the host runs ahead of the card.
 A prefill may resume over a cached prompt prefix (`start(prefix_len=P)`,
 prefix sharing): the cache rows below P are seeded and the chunk loop
 starts at operator offset P, so the kernel reads the seeded prefix.
+
+With the tracer on (`repro_torch.tracing`), each step records a `segment`
+span of its host time, with its operator (or the granularity's group),
+layer and chunk, for the Execution Pool's task id it carries.
 """
 from __future__ import annotations
 
 import contextlib
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
@@ -172,6 +178,8 @@ class PrefillTask:
     # event after the last stepped segment: the Execution Pool waits on it to
     # bound dispatch-ahead depth (None on the CPU)
     sync_token: Optional[torch.cuda.Event] = None
+    # the Execution Pool's id of the task, which its `segment` spans name
+    task_id: Optional[int] = None
 
     @property
     def done(self) -> bool:
@@ -227,6 +235,10 @@ class SegmentedPrefill:
             return seg
 
         self._segments = [make_segment(g, self._block_layers) for g in groups]
+        # what a `segment` span calls each group: its operator, or the
+        # granularity where one group runs every operator of its layers
+        self._segment_names = list(self.ops) if granularity == "op" \
+            else [granularity]
         self._segments_per_chunk = (
             (cfg.num_layers + self._block_layers - 1) // self._block_layers
             * len(self._segments))
@@ -318,12 +330,19 @@ class SegmentedPrefill:
         signal between calls."""
         if task.done:
             return True
+        tr = tracing.on
+        if tr:
+            t0 = time.monotonic()
         seg_idx = task.cursor
         spc = self._segments_per_chunk
         if seg_idx == task.total_segments - 1:              # lm_head
             task.logits = self._head(task.state["h_full"], task.state["lens"])
             task.sync_token = mark(self.device)
             task.cursor += 1
+            if tr:
+                tracing.record("segment", t0, time.monotonic(),
+                               cause=task.task_id, op="head", layer=None,
+                               chunk=None)
             return True
 
         chunk_idx, within = divmod(seg_idx, spc)
@@ -343,6 +362,10 @@ class SegmentedPrefill:
         task.state = st
         task.sync_token = mark(self.device)
         task.cursor += 1
+        if tr:
+            tracing.record("segment", t0, time.monotonic(), cause=task.task_id,
+                           op=self._segment_names[group_idx], layer=l0,
+                           chunk=chunk_idx)
         return task.done
 
     def run_all(self, task: PrefillTask) -> torch.Tensor:

@@ -16,7 +16,8 @@ Counterpart of src/repro/serving/pool.py. The reference's three
 window, completion) each wait on the CUDA event the executor records after
 a segment (`PrefillTask.sync_token`), on the instance's own stream, so they
 wait only for prefill's own work. On the CPU the token is None and the
-waits are no-ops.
+waits are no-ops. With the tracer on (`repro_torch.tracing`), each of the
+three waits records a `device_wait` span.
 """
 from __future__ import annotations
 
@@ -26,11 +27,23 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
+from repro_torch import tracing
 from repro_torch.core.preemption import BlockingStats, PreemptionSignal
 from repro_torch.core.request import Request
 from repro_torch.models.segments import wait
 
 _task_ids = itertools.count()
+
+
+def _wait(token, task: "ExecTask", why: str) -> None:
+    """`wait` on a segment's event, as a `device_wait` span of `task`."""
+    if tracing.on:
+        t0 = time.monotonic()
+        wait(token)
+        tracing.record("device_wait", t0, time.monotonic(),
+                       cause=task.task_id, why=why)
+    else:
+        wait(token)
 
 
 @dataclass
@@ -173,7 +186,7 @@ class ExecutionPool:
             # cooperative preemption check at the operator boundary
             if self.signal.check():
                 # drain the in-flight operators (bounded by dispatch_depth)
-                wait(task.prefill_task.sync_token)
+                _wait(task.prefill_task.sync_token, task, "drain")
                 dt = self.signal.consume_and_ack()
                 self.blocking.record(dt)
                 with self._cv:
@@ -188,10 +201,10 @@ class ExecutionPool:
             if tok is not None:
                 window.append(tok)
                 if len(window) > self._dispatch_depth:
-                    wait(window.pop(0))
+                    _wait(window.pop(0), task, "throttle")
 
             if done:
-                wait(task.prefill_task.sync_token)
+                _wait(task.prefill_task.sync_token, task, "complete")
                 task.complete_time = self._clock()
                 with self._cv:
                     self._current = None

@@ -20,6 +20,12 @@ Counterpart of src/repro/serving/prefill_instance.py. On the card the
 instance owns one CUDA stream: task set-up on the scheduler thread, every
 segment on the pool worker, and every read and write of the prefix pool run
 on it, so the pool's event waits cover only this instance's work.
+
+With the tracer on (`repro_torch.tracing`; each arriving request polls it,
+so a `torch.profiler` session turns it on), the instance records a `queue`
+span per request (ARRIVAL published to its task's submit), a `round` span
+per scheduling round, and inside a round a `preempt` span around the pool's
+preemption handshake and a `handoff` span around `on_prefill_done`.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.events import Event, EventKind, EventMonitor
 from repro_torch.core.prefixcache import block_keys
 from repro_torch.core.request import Request, RequestState
@@ -117,6 +124,10 @@ class PrefillInstance:
         # tasks running when the instance was stranded: their requests were
         # re-dispatched, so a COMPLETION they queued is a zombie's
         self._stranded_tasks: set = set()
+        # tracer on: rid -> time.monotonic() its ARRIVAL was published, until
+        # its task is submitted; and the id of the round being handled
+        self._queued_at: Dict[int, float] = {}
+        self._round_sid = 0
         self.completed: List[Request] = []
         self.completed_tasks: List[ExecTask] = []
         self._lock = threading.Lock()
@@ -131,6 +142,7 @@ class PrefillInstance:
 
     # ------------------------------------------------------------- frontend
     def submit_request(self, req: Request, tokens: np.ndarray) -> None:
+        tracing.poll()
         with self._lock:
             if self.healthy and not self._busy():
                 # beyond the reference: work arriving at an idle instance
@@ -139,6 +151,8 @@ class PrefillInstance:
                 self.last_progress = self.clock()
             self._tokens[req.rid] = np.asarray(tokens)
             self._arriving += 1
+        if tracing.on:
+            self._queued_at[req.rid] = time.monotonic()
         self.monitor.publish(Event(time=self.clock(), kind=EventKind.ARRIVAL,
                                    payload=req))
 
@@ -236,6 +250,10 @@ class PrefillInstance:
             ev = self.monitor.next_event(timeout=1.0)
             if ev is None:
                 continue
+            tr = tracing.on
+            if tr:
+                t0 = time.monotonic()
+                self._round_sid = tracing.new_id()
             if ev.kind == EventKind.SHUTDOWN:
                 return
             try:
@@ -262,6 +280,10 @@ class PrefillInstance:
                 with self._lock:
                     self._handle_event(ev)
                     self._round()
+                    if tr:
+                        tracing.record("round", t0, time.monotonic(),
+                                       cause=ev.seq, sid=self._round_sid,
+                                       kind=ev.kind.value, published=ev.time)
                     if not self._busy():
                         self._idle_cv.notify_all()
                 self.last_progress = self.clock()
@@ -434,7 +456,13 @@ class PrefillInstance:
             self.completed.extend(task.requests)
             self.completed_tasks.append(task)
             if self.on_prefill_done is not None:
+                tr = tracing.on
+                if tr:
+                    t0 = time.monotonic()
                 self.on_prefill_done(task)
+                if tr:
+                    tracing.record("handoff", t0, time.monotonic(),
+                                   cause=self._round_sid, task=task.task_id)
 
     def _round(self) -> None:
         """One scheduling round (Alg. 2) + command execution."""
@@ -447,7 +475,15 @@ class PrefillInstance:
             return
 
         if decision.preempt is not None and self._running is not None:
+            tr = tracing.on
+            if tr:
+                t0 = time.monotonic()
             suspended = self.pool.preempt_current()
+            if tr:
+                tracing.record("preempt", t0, time.monotonic(),
+                               cause=self._round_sid,
+                               task=self._running.task_id,
+                               suspended=suspended is not None)
             if suspended is not None:
                 head = suspended.head
                 for r in suspended.requests:
@@ -479,6 +515,12 @@ class PrefillInstance:
             self._waiting = [r for r in self._waiting
                              if r.rid not in waiting_ids]
             self._running = task
+            if tracing.on:
+                now = time.monotonic()
+                for r in batch:
+                    t0 = self._queued_at.pop(r.rid, None)
+                    if t0 is not None:
+                        tracing.record("queue", t0, now, cause=r.rid)
             self.pool.submit(task)
         elif decision.action == Action.RESUME:
             head = decision.target
@@ -553,7 +595,9 @@ class PrefillInstance:
                     prefix_v=torch.stack(vs, dim=1))
             else:
                 pt = self.executor.start(arr, lens=lens)
-        return ExecTask(prefill_task=pt, requests=list(batch))
+        task = ExecTask(prefill_task=pt, requests=list(batch))
+        pt.task_id = task.task_id
+        return task
 
     # ------------------------------------------------------------- metrics
     @property
