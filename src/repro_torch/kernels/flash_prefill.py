@@ -96,10 +96,13 @@ def flash_prefill_attention(
     *,
     causal: bool = True,
     local_window: int = 0,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Chunked-causal flash attention on the card. Returns (B, Sq, H, hd) in
     q's dtype; rows with no visible key are 0. bf16 at head_dim 64, 128 or
-    256 runs a tensor-core body, everything else the f32 CUDA-core body."""
+    256 runs a tensor-core body, everything else the f32 CUDA-core body.
+    `out`, where given, is written and returned: a (B, Sq, H, hd) tensor of
+    q's type whose (heads, head_dim) axes are dense."""
     B, Sq, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
@@ -117,7 +120,13 @@ def flash_prefill_attention(
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_operand(name, x, q.device, q.dtype, hd)
     kv_len = T if kv_len is None else int(kv_len)
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    elif tuple(out.shape) != (B, Sq, H, hd):
+        raise ValueError(f"flash_prefill_attention: out {tuple(out.shape)} "
+                         f"does not match q {tuple(q.shape)}")
+    else:
+        check_operand("out", out, q.device, q.dtype, hd)
     if out.numel() == 0:
         return out
     lib, fn = _kernel()

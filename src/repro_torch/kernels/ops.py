@@ -118,22 +118,25 @@ def on_local_shards(fn: Callable, q, k, v, *rows, q_heads: int = 2):
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v, *args)
 
 
-def _prefill(q, k, v, q_offset, kv_len, *, causal, local_window):
+def _prefill(q, k, v, q_offset, kv_len, *, causal, local_window, out=None):
     if _route(q) == "cuda":
         return flash_prefill_attention(q, k, v, q_offset, kv_len,
                                        causal=causal,
-                                       local_window=local_window)
-    return ref.chunked_prefill_attention_ref(
+                                       local_window=local_window, out=out)
+    o = ref.chunked_prefill_attention_ref(
         q, k, v, q_offset=q_offset, kv_len=kv_len, causal=causal,
         local_window=local_window)
+    return o if out is None else out.copy_(o)
 
 
 def prefill_attention(q, k, v, *, q_offset=0, kv_len=None, causal=True,
-                      local_window=0) -> torch.Tensor:
-    """q: (B,Sq,H,hd); k/v: (B,T,K,hd) -> (B,Sq,H,hd)."""
-    return on_local_shards(
-        functools.partial(_prefill, causal=causal, local_window=local_window),
-        q, k, v, q_offset, kv_len)
+                      local_window=0, out=None) -> torch.Tensor:
+    """q: (B,Sq,H,hd); k/v: (B,T,K,hd) -> (B,Sq,H,hd), written into `out`
+    where given (plain tensors only: no DTensor)."""
+    fn = functools.partial(_prefill, causal=causal, local_window=local_window)
+    if out is not None:
+        return fn(q, k, v, q_offset, kv_len, out=out)
+    return on_local_shards(fn, q, k, v, q_offset, kv_len)
 
 
 def _decode(q, k, v, kv_len):

@@ -28,7 +28,8 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_bwd_ref, naive_attention
 
-__all__ = ["rms_norm", "layer_norm", "rope_freqs", "apply_rope",
+__all__ = ["rms_norm", "layer_norm", "rope_freqs", "rope_tables",
+           "rope_rotate", "apply_rope",
            "sinusoidal_positions", "swiglu", "gelu_mlp", "moe_router",
            "moe_apply", "moe_ffn", "naive_attention", "FlashAttention",
            "blocked_attention", "causal_conv1d", "rglru", "rglru_step",
@@ -59,18 +60,36 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin (..., S, head_dim/2) in f32 of the rotary angles at
+    `positions` (..., S)."""
+    freqs = rope_freqs(head_dim, theta, positions.device)      # (hd/2,)
+    angles = positions.to(torch.float32)[..., None] * freqs    # (..., S, hd/2)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The split-half rotation of x (..., head_dim) by tables that
+    broadcast against its halves, in f32, cast to x's dtype (or written
+    into `out`, cast to its dtype)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    lo, hi = x1 * cos - x2 * sin, x1 * sin + x2 * cos
+    if out is None:
+        return torch.cat([lo, hi], dim=-1).to(x.dtype)
+    half = x.shape[-1] // 2
+    out[..., :half] = lo
+    out[..., half:] = hi
+    return out
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Split-half rotary embedding computed in f32.
     x: (..., S, n_heads, head_dim); positions: (..., S)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
-    angles = positions.to(torch.float32)[..., None] * freqs    # (..., S, hd/2)
-    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    cos, sin = rope_tables(positions, x.shape[-1], theta)
+    return rope_rotate(x, cos[..., None, :], sin[..., None, :])
 
 
 def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
@@ -153,10 +172,11 @@ def gate_up(x: torch.Tensor, w_in: torch.Tensor) -> torch.Tensor:
                      redistribute_inputs=True)(x, w_in)
 
 
-def _gate_up(x: torch.Tensor, w_in: torch.Tensor) -> torch.Tensor:
+def _gate_up(x: torch.Tensor, w_in: torch.Tensor,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     D, _, Fd = w_in.shape
     gu = (x @ w_in.reshape(D, 2 * Fd)).unflatten(-1, (2, Fd))
-    return F.silu(gu[..., 0, :]) * gu[..., 1, :]
+    return torch.mul(F.silu(gu[..., 0, :]), gu[..., 1, :], out=out)
 
 
 def swiglu(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:

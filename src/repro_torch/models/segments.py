@@ -24,14 +24,35 @@ A prefill may resume over a cached prompt prefix (`start(prefix_len=P)`,
 prefix sharing): the cache rows below P are seeded and the chunk loop
 starts at operator offset P, so the kernel reads the seeded prefix.
 
+On the card the per-token operators (`GRAPHED_OPS`: every row of the
+chunk's flattened (B * Sc, .) tokens is computed alone, so padded rows
+change no valid one) are replayed from CUDA graphs, one per layer, operator
+and token-count bucket (`token_buckets`), over static buffers of the
+executor: the resident task's hidden state, the operators' outputs and the
+chunk's RoPE tables, which are built once at the chunk's start and applied
+at the end of `qkv_proj`. `attn` (the kernel's offsets and lengths are
+per task and chunk) and `experts` (its groups and capacity follow the
+token count) stay eager and read and write the same buffers. A task
+stepped while another is resident first spills the other's live tensors
+into that task's state and loads its own. Every bucket is captured when
+the executor is built, so no capture stalls a serving step; a task whose
+chunk holds more tokens than the largest bucket, and every task on the
+CPU, runs the eager operators on its own state.
+
 With the tracer on (`repro_torch.tracing`), each step records a `segment`
 span of its host time, with its operator (or the granularity's group),
-layer and chunk, for the Execution Pool's task id it carries.
+layer and chunk, whether it replayed graphs (`graphed`), for the
+Execution Pool's task id it carries. `kernels.counts` counts the steps
+that replayed graphs, the eager ones and the graphs captured
+(`GRAPH_COUNTS`).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
+import threading
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -39,6 +60,7 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import counts
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.model import (_check_ported, _merge_vision,
@@ -49,6 +71,14 @@ State = Dict[str, Any]
 
 DENSE_OPS = ("qkv_proj", "attn", "o_proj", "gate_up_proj", "down_proj")
 MOE_OPS = ("qkv_proj", "attn", "o_proj", "gate", "experts")
+# the per-token operators, replayed from CUDA graphs on the card
+GRAPHED_OPS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj", "gate")
+# steps that replayed graphs, steps that ran eagerly, graphs captured
+GRAPH_COUNTS = ("segment_graph_replay", "segment_eager",
+                "segment_graph_capture")
+# the static buffers live before each operator, besides h and the tables
+_LIVE = {"attn": ("q", "k", "v"), "o_proj": ("o",), "down_proj": ("gu",),
+         "experts": ("x", "w", "idx")}
 
 
 def op_names(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -93,6 +123,39 @@ def on_stream(stream: Optional[torch.cuda.Stream]):
     """Make `stream` current for this thread (a no-op on the CPU)."""
     return torch.cuda.stream(stream) if stream is not None \
         else contextlib.nullcontext()
+
+
+def token_buckets(largest: int) -> List[int]:
+    """The token counts the static buffers run at, up to the first at or
+    above `largest`: powers of two from 16 to 1024, then steps of 1.5x and
+    4/3x (1536, 2048, 3072, 4096, ...). A chunk's count pads up to the
+    next one: at most 2x below 1024 tokens, 1.5x above."""
+    out = [16]
+    while out[-1] < largest:
+        b = out[-1]
+        out.append(2 * b if b < 1024 else
+                   b * 3 // 2 if b & (b - 1) == 0 else b * 4 // 3)
+    return out
+
+
+def _graphable(device: torch.device) -> bool:
+    """Whether the per-token operators run from graphs over static
+    buffers: on the card."""
+    return device.type == "cuda"
+
+
+def _capture(fn: Callable[[], None], stream, pool) -> Callable[[], None]:
+    """`fn`'s launches captured on `stream` into a CUDA graph whose
+    temporaries come from `pool`; returns its replay, which launches on
+    the current stream. Other threads may launch meanwhile."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    return graph.replay
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +221,43 @@ def _make_op_fns(cfg: ModelConfig) -> Dict[str, Callable]:
             "gate": gate, "experts": experts}
 
 
+def _make_graphed_fns(cfg: ModelConfig) -> Dict[str, Callable]:
+    """The per-token operators over static buffers: fn(p, buf, n) reads
+    and writes the leading n rows of each (rows, width) buffer of `buf`,
+    the chunk's tokens flattened. The same operations as `_make_op_fns`'s,
+    with `attn`'s RoPE at the end of `qkv_proj` from the chunk's tables."""
+    K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
+
+    def qkv_proj(p, buf, n):
+        x = L.rms_norm(buf["h"][:n], p["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(cfg, p, x)
+        cos, sin = buf["cos"][:n, None], buf["sin"][:n, None]
+        L.rope_rotate(q, cos, sin, out=buf["q"][:n].view(n, H, hd))
+        L.rope_rotate(k, cos, sin, out=buf["k"][:n].view(n, K, hd))
+        buf["v"][:n].copy_(v.flatten(1))
+
+    def o_proj(p, buf, n):
+        buf["h"][:n].add_(buf["o"][:n] @ p["wo"])
+
+    def gate_up_proj(p, buf, n):
+        x = L.rms_norm(buf["h"][:n], p["ln2"], cfg.norm_eps)
+        L._gate_up(x, p["wi"], out=buf["gu"][:n])
+
+    def down_proj(p, buf, n):
+        buf["h"][:n].add_(buf["gu"][:n] @ p["wd"])
+
+    def gate(p, buf, n):
+        x = L.rms_norm(buf["h"][:n], p["ln2"], cfg.norm_eps)
+        w, idx, _ = L.moe_router(x, p["router"], cfg.experts_per_token)
+        buf["x"][:n].copy_(x)
+        buf["w"][:n].copy_(w)
+        buf["idx"][:n].copy_(idx)
+
+    return {"qkv_proj": qkv_proj, "o_proj": o_proj,
+            "gate_up_proj": gate_up_proj, "down_proj": down_proj,
+            "gate": gate}
+
+
 # ---------------------------------------------------------------------------
 # Execution plan + task
 # ---------------------------------------------------------------------------
@@ -180,6 +280,9 @@ class PrefillTask:
     sync_token: Optional[torch.cuda.Event] = None
     # the Execution Pool's id of the task, which its `segment` spans name
     task_id: Optional[int] = None
+    # its per-token operators run over the executor's static buffers (from
+    # graphs on the card); else every operator runs eagerly on `state`
+    static: bool = False
 
     @property
     def done(self) -> bool:
@@ -235,6 +338,9 @@ class SegmentedPrefill:
             return seg
 
         self._segments = [make_segment(g, self._block_layers) for g in groups]
+        # the operators of each group, for the static-buffer path
+        self._group_ops = [(name,) for name in self.ops] \
+            if granularity == "op" else [self.ops]
         # what a `segment` span calls each group: its operator, or the
         # granularity where one group runs every operator of its layers
         self._segment_names = list(self.ops) if granularity == "op" \
@@ -242,6 +348,159 @@ class SegmentedPrefill:
         self._segments_per_chunk = (
             (cfg.num_layers + self._block_layers - 1) // self._block_layers
             * len(self._segments))
+        self._buf: Optional[Dict[str, torch.Tensor]] = None
+        if _graphable(self.device):
+            self._init_graphs()
+
+    # --- static buffers and graphs ---------------------------------------------
+    def _init_graphs(self) -> None:
+        """The static buffers at the largest bucket (8 chunks, for batched
+        rows; the whole prompt where there is no chunking) and the graphs of
+        every bucket, captured before any task runs. Each operator runs once
+        eagerly at each bucket on the capture stream first, which sets up
+        the cuBLAS handle and workspace of this thread and stream and loads
+        the bucket's kernels outside the capture."""
+        cfg, layers = self.cfg, self.params["layers"]
+        K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
+        self._buckets = token_buckets(8 * self.chunk_tokens or self.max_seq)
+        rows = self._buckets[-1]
+        act = self.params["embed"].dtype
+
+        def zeros(width, dtype=act):
+            return torch.zeros((rows, width), dtype=dtype, device=self.device)
+        buf = {"h": zeros(cfg.d_model), "q": zeros(H * hd),
+               "k": zeros(K * hd), "v": zeros(K * hd), "o": zeros(H * hd),
+               "cos": zeros(hd // 2, torch.float32),
+               "sin": zeros(hd // 2, torch.float32)}
+        if "router" in layers:
+            k = cfg.experts_per_token
+            buf.update(x=zeros(cfg.d_model), w=zeros(k, torch.float32),
+                       idx=zeros(k, torch.int64))
+        else:
+            buf["gu"] = zeros(layers["wi"].shape[-1])
+        self._buf = buf
+        # the task whose live tensors the buffers hold, and the stream and
+        # event of the buffers' last step
+        self._resident: Optional[weakref.ref] = None
+        self._last: Optional[Tuple[torch.cuda.Stream, torch.cuda.Event]] = None
+        self._lock = threading.Lock()
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.Stream(self.device) if cuda else None
+        pool = torch.cuda.graph_pool_handle() if cuda else None
+        if stream is not None:                  # the buffers' zeros first
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+        fns = _make_graphed_fns(cfg)
+        self._graphs: Dict[Tuple[int, str, int], Callable[[], None]] = {}
+        for b in self._buckets:
+            for name in self.ops:
+                if name not in GRAPHED_OPS:
+                    continue
+                with on_stream(stream):
+                    fns[name](layer_params(self.params, 0), buf, b)
+                if stream is not None:
+                    stream.synchronize()
+                for l in range(cfg.num_layers):
+                    self._graphs[l, name, b] = _capture(functools.partial(
+                        fns[name], layer_params(self.params, l), buf, b),
+                        stream, pool)
+                    counts.bump("segment_graph_capture")
+
+    def _live(self, task: PrefillTask) -> Tuple[int, Tuple[str, ...]]:
+        """The rows and the names of the static buffers `task` holds live
+        before its next segment: none at a chunk's start."""
+        chunk_idx, within = divmod(task.cursor, self._segments_per_chunk)
+        if within == 0 or task.done:
+            return 0, ()
+        lo, hi = self._chunk_bounds(task, chunk_idx)
+        nxt = self._group_ops[within % len(self._segments)][0]
+        return (task.state["tokens"].shape[0] * (hi - lo),
+                ("h", "cos", "sin") + _LIVE.get(nxt, ()))
+
+    def _claim(self, task: PrefillTask) -> None:
+        """Make the static buffers `task`'s: after the buffers' last step
+        where that ran on another stream, spill the resident task's live
+        tensors into its state, and load `task`'s."""
+        stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
+        if self._last is not None and self._last[0] != stream:
+            stream.wait_event(self._last[1])
+        old = self._resident() if self._resident is not None else None
+        if old is task:
+            return
+        if old is not None:
+            n, names = self._live(old)
+            if names:
+                old.state["spill"] = {k: self._buf[k][:n].clone()
+                                      for k in names}
+        for k, t in task.state.pop("spill", {}).items():
+            self._buf[k][:t.shape[0]].copy_(t)
+            if stream is not None:
+                t.record_stream(stream)
+        self._resident = weakref.ref(task)
+
+    def _attn(self, task: PrefillTask, l: int, off: int, B: int, Sc: int):
+        """`attn` over the static buffers: the chunk's k/v into the task's
+        cache, then the kernel writing the buffer `o_proj` reads."""
+        cfg, buf, n = self.cfg, self._buf, B * Sc
+        K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
+        kc, vc = task.state["k_cache"], task.state["v_cache"]
+        kc[l, :, off:off + Sc] = buf["k"][:n].view(B, Sc, K, hd)
+        vc[l, :, off:off + Sc] = buf["v"][:n].view(B, Sc, K, hd)
+        kops.prefill_attention(
+            buf["q"][:n].view(B, Sc, H, hd), kc[l], vc[l], q_offset=off,
+            kv_len=off + Sc, causal=True, local_window=cfg.local_window,
+            out=buf["o"][:n].view(B, Sc, H, hd))
+
+    def _experts(self, task: PrefillTask, l: int, off: int, B: int, Sc: int):
+        """`experts` over the static buffers, on the chunk's B * Sc tokens."""
+        cfg, buf, n = self.cfg, self._buf, B * Sc
+        p = layer_params(self.params, l)
+        y = L.moe_apply(buf["x"][:n].view(B, Sc, -1),
+                        buf["w"][:n].view(B, Sc, -1),
+                        buf["idx"][:n].view(B, Sc, -1), p["wi"], p["wd"],
+                        k=cfg.experts_per_token,
+                        capacity_factor=cfg.moe_capacity_factor,
+                        min_capacity=cfg.moe_min_capacity)
+        buf["h"][:n].add_(y.reshape(n, -1))
+
+    def _step_static(self, task: PrefillTask, chunk_idx: int, within: int,
+                     group_idx: int, l0: int) -> bool:
+        """One segment over the static buffers; True where it replayed
+        graphs."""
+        cfg, buf, st = self.cfg, self._buf, task.state
+        lo, hi = self._chunk_bounds(task, chunk_idx)
+        B, Sc = st["tokens"].shape[0], hi - lo
+        n = B * Sc
+        bucket = next(b for b in self._buckets if b >= n)
+        self._claim(task)
+        if within == 0:                                     # chunk begins
+            h = embed_tokens(cfg, self.params, st["tokens"][:, lo:hi])
+            if chunk_idx == 0 and "vision_embeds" in st:
+                h = _merge_vision(h, st["vision_embeds"])
+            buf["h"][:n].copy_(h.reshape(n, -1))
+            cos, sin = L.rope_tables(
+                lo + torch.arange(Sc, device=self.device),
+                cfg.resolved_head_dim, cfg.rope_theta)
+            buf["cos"][:n].view(B, Sc, -1).copy_(cos)
+            buf["sin"][:n].view(B, Sc, -1).copy_(sin)
+        graphed = False
+        for l in range(l0, min(l0 + self._block_layers, cfg.num_layers)):
+            for name in self._group_ops[group_idx]:
+                if name == "attn":
+                    self._attn(task, l, lo, B, Sc)
+                elif name == "experts":
+                    self._experts(task, l, lo, B, Sc)
+                else:
+                    self._graphs[l, name, bucket]()
+                    graphed = True
+        if within == self._segments_per_chunk - 1:          # chunk ends
+            st["h_full"][:, lo:hi] = buf["h"][:n].view(B, Sc, -1).to(
+                st["h_full"].dtype)
+        task.sync_token = mark(self.device)
+        if task.sync_token is not None:
+            self._last = (torch.cuda.current_stream(self.device),
+                          task.sync_token)
+        return graphed
 
     # --- plan geometry -------------------------------------------------------
     def n_chunks(self, prompt_len: int, prefix_len: int = 0) -> int:
@@ -308,9 +567,12 @@ class SegmentedPrefill:
         }
         if vision_embeds is not None:
             state["vision_embeds"] = vision_embeds
-        return PrefillTask(state=state, prompt_len=S, start_offset=prefix_len,
-                           n_chunks=self.n_chunks(S, prefix_len), chunk=chunk,
-                           total_segments=self.segments_for(S, prefix_len))
+        return PrefillTask(
+            state=state, prompt_len=S, start_offset=prefix_len,
+            n_chunks=self.n_chunks(S, prefix_len), chunk=chunk,
+            total_segments=self.segments_for(S, prefix_len),
+            static=self._buf is not None
+            and B * min(chunk, S - prefix_len) <= self._buckets[-1])
 
     def _chunk_bounds(self, task: PrefillTask, chunk_idx: int) -> Tuple[int, int]:
         lo = task.start_offset + chunk_idx * task.chunk
@@ -339,33 +601,44 @@ class SegmentedPrefill:
             task.logits = self._head(task.state["h_full"], task.state["lens"])
             task.sync_token = mark(self.device)
             task.cursor += 1
+            counts.bump("segment_eager")
             if tr:
                 tracing.record("segment", t0, time.monotonic(),
                                cause=task.task_id, op="head", layer=None,
-                               chunk=None)
+                               chunk=None, graphed=False)
             return True
 
         chunk_idx, within = divmod(seg_idx, spc)
-        lo, hi = self._chunk_bounds(task, chunk_idx)
         layer_block, group_idx = divmod(within, len(self._segments))
         l0 = layer_block * self._block_layers
 
-        st = task.state
-        if within == 0:                                     # chunk begins
-            h = embed_tokens(self.cfg, self.params, st["tokens"][:, lo:hi])
-            if chunk_idx == 0 and "vision_embeds" in st:
-                h = _merge_vision(h, st["vision_embeds"])
-            st = dict(st, h=h)
-        st = self._segments[group_idx](self.params, st, l0, lo)
-        if within == spc - 1:                               # chunk ends
-            st["h_full"][:, lo:hi] = st["h"].to(st["h_full"].dtype)
-        task.state = st
-        task.sync_token = mark(self.device)
-        task.cursor += 1
+        if task.static:
+            # the cursor moves under the lock too: the next claim reads
+            # from it what this task holds live in the buffers
+            with self._lock:
+                graphed = self._step_static(task, chunk_idx, within,
+                                            group_idx, l0)
+                task.cursor += 1
+        else:
+            graphed = False
+            lo, hi = self._chunk_bounds(task, chunk_idx)
+            st = task.state
+            if within == 0:                                 # chunk begins
+                h = embed_tokens(self.cfg, self.params, st["tokens"][:, lo:hi])
+                if chunk_idx == 0 and "vision_embeds" in st:
+                    h = _merge_vision(h, st["vision_embeds"])
+                st = dict(st, h=h)
+            st = self._segments[group_idx](self.params, st, l0, lo)
+            if within == spc - 1:                           # chunk ends
+                st["h_full"][:, lo:hi] = st["h"].to(st["h_full"].dtype)
+            task.state = st
+            task.sync_token = mark(self.device)
+            task.cursor += 1
+        counts.bump("segment_graph_replay" if graphed else "segment_eager")
         if tr:
             tracing.record("segment", t0, time.monotonic(), cause=task.task_id,
                            op=self._segment_names[group_idx], layer=l0,
-                           chunk=chunk_idx)
+                           chunk=chunk_idx, graphed=graphed)
         return task.done
 
     def run_all(self, task: PrefillTask) -> torch.Tensor:
