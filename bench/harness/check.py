@@ -13,9 +13,10 @@ were served are compared; a cell compares the numbers its limits name
   reference's logits (widest);
 - ``logit_err``: the RMS of the first-token logits' error over the RMS of
   the reference's logits about their mean (median);
-- ``kv_err`` / ``kv_first_err``: per position, the error of the handed-off
-  key (or value) over its norm; the median over positions, the widest over
-  requests and over the first, a middle and the last layer, or at the
+- ``kv_err`` / ``kv_first_err``: per position, the error of each handed-off
+  cache tensor (the architecture's HANDOFF: key and value, for a decoder)
+  over its norm; the median over positions, the widest over the tensors,
+  over requests and over the first, a middle and the last layer, or at the
   first layer only;
 - ``logit_outliers``: compared requests whose own logit error exceeds the
   cell's per-request limit (``each.logit_err``): a fault that reaches a
@@ -69,11 +70,12 @@ def per_request(ref_logits: torch.Tensor, ref_kv: Dict,
                 tokens: Sequence[int], logits: Sequence[torch.Tensor],
                 kv: Sequence[Dict]) -> Dict[str, list]:
     """Each compared prompt's readings: `tokens[p]` its served first token,
-    `logits[p]` (V,) its served logits, `kv[p]` {layer: (k, v)} its handed-
-    off cache rows; against the reference's `ref_logits` (P, V) and
-    `ref_kv` {(p, layer): (k, v)}. A KV reading is the median over positions
-    of each position's relative error, the larger of k and v: ``kv`` the
-    largest over the layers, ``kv_first`` at the first layer."""
+    `logits[p]` (V,) its served logits, `kv[p]` {layer: (tensor, ...)} its
+    handed-off cache rows, one tensor per HANDOFF key; against the
+    reference's `ref_logits` (P, V) and `ref_kv` {(p, layer): (tensor,
+    ...)} in the same order. A KV reading is the median over positions of
+    each position's relative error, the largest over the tensors: ``kv``
+    the largest over the layers, ``kv_first`` at the first layer."""
     out: Dict[str, list] = {"gap": [], "logit": [], "kv": [], "kv_first": [],
                             "argmax": [], "kv_layers": []}
     for p, (tok, lg, kvp) in enumerate(zip(tokens, logits, kv)):

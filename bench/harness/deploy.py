@@ -1,62 +1,33 @@
 """A cell's deployment: the port's `ModelConfig` from the configuration
-file, weights drawn from the seed on the device, and one prefill and one
-decode instance behind a Proxy, wired as `repro_torch.launch.serve.build`
-wires them.
+file (built by its architecture's module, bench/arch/), weights drawn from
+the seed on the device, and one prefill and one decode instance behind a
+Proxy, wired as `repro_torch.launch.serve.build` wires them.
 
 The weights are the benchmark's: drawn here in the program's layout
 (`model_shapes`) and handed to the program and to the plain reference alike.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict
 
 import torch
 
-# (published key, ModelConfig field) of every width and shape the cell
-# serves; each must equal the port's own configuration of the arch
-WIDTHS = (("num_hidden_layers", "num_layers"), ("hidden_size", "d_model"),
-          ("num_attention_heads", "num_heads"),
-          ("num_key_value_heads", "num_kv_heads"),
-          ("vocab_size", "vocab_size"), ("rope_theta", "rope_theta"),
-          ("tie_word_embeddings", "tie_embeddings"), ("qkv_bias", "qkv_bias"))
+from harness import files
+
+ARCH_DIR = Path(__file__).resolve().parents[1] / "arch"
 
 
-def model_config(spec: dict):
-    """The ModelConfig the configuration file describes. Raises where a
-    width differs from `repro_torch.configs.get_config(port_arch)`."""
-    from repro_torch.configs.base import ModelConfig, get_config, get_tiny_config
-    port_arch = spec["port_arch"]
-    port = get_tiny_config(port_arch) if spec.get("tiny") else \
-        get_config(port_arch)
-    moe = bool(spec.get("num_experts"))
-    fields = {f: spec[k] for k, f in WIDTHS}
-    fields.update(
-        name=spec["name"], family="moe" if moe else "dense",
-        head_dim=spec.get("head_dim",
-                          spec["hidden_size"] // spec["num_attention_heads"]),
-        d_ff=spec["moe_intermediate_size"] if moe
-        else spec["intermediate_size"],
-        norm_eps=spec["rms_norm_eps"])
-    if moe:
-        fields.update(num_experts=spec["num_experts"],
-                      experts_per_token=spec["num_experts_per_tok"],
-                      moe_capacity_factor=spec["deployment"][
-                          "moe_capacity_factor"])
-    cfg = ModelConfig(**fields)
-    mine = dataclasses.replace(cfg, name=port.name, norm_eps=port.norm_eps,
-                               moe_capacity_factor=port.moe_capacity_factor,
-                               source=port.source)
-    if mine.resolved_head_dim != port.resolved_head_dim or \
-            dataclasses.replace(mine, head_dim=port.head_dim) != port:
-        diff = {f.name: (getattr(cfg, f.name), getattr(port, f.name))
-                for f in dataclasses.fields(cfg)
-                if getattr(mine, f.name) != getattr(port, f.name)}
-        raise ValueError(f"{spec['name']}: widths differ from the port's "
-                         f"{port_arch} config (file, port): {diff}")
-    return cfg
+def model_config(spec: dict, arch=None):
+    """The ModelConfig the configuration file describes, built by its
+    architecture's module (`arch`, or `bench/arch/<reference>.py` beside
+    this harness), which raises where a width differs from the port's
+    config of `port_arch`."""
+    if arch is None:
+        arch = files.arch(ARCH_DIR, spec["reference"])
+    return arch.model_config(spec)
 
 
 def _std(key: str, shape, d_model: int) -> float:

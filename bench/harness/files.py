@@ -1,6 +1,7 @@
 """The benchmark's data, found by the names in BENCHMARK.json: a cell's
-configuration (`bench/configs/<config>.json`) and the plain reference it
-names (`bench/reference/<reference>.py`), traffic mix
+configuration (`bench/configs/<config>.json`), the architecture and the
+plain reference it names (`bench/arch/<reference>.py`,
+`bench/reference/<reference>.py`), traffic mix
 (`bench/traffic/<traffic>.json`), rate and limits (`bench/cells/<cell>.json`),
 and each metric's reader (`bench/metrics/<metric>.py`). Adding any of them
 is adding files.
@@ -25,6 +26,7 @@ class Cell:
     per_layer: List[dict]
     traffic_dir: Path
     metrics_dir: Path
+    arch_dir: Path
     reference_dir: Path
 
 
@@ -58,7 +60,7 @@ def load(root: Path, workload: str) -> Cell:
                 cell=_read(bench / "cells" / f"{workload}.json"),
                 end_to_end=e2e, per_layer=layer,
                 traffic_dir=bench / "traffic", metrics_dir=bench / "metrics",
-                reference_dir=bench / "reference")
+                arch_dir=bench / "arch", reference_dir=bench / "reference")
 
 
 def _module(path: Path, prefix: str):
@@ -72,6 +74,12 @@ def _module(path: Path, prefix: str):
 def reader(metrics_dir: Path, name: str):
     """`read(run)` of `<metrics_dir>/<name>.py`."""
     return _module(metrics_dir / f"{name}.py", "bench_metric_").read
+
+
+def arch(arch_dir: Path, name: str):
+    """The architecture module `<arch_dir>/<name>.py` (bench/arch/decoder.py
+    says what it defines)."""
+    return _module(arch_dir / f"{name}.py", "bench_arch_")
 
 
 def reference(cell: Cell):

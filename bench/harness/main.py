@@ -34,6 +34,7 @@ class Run:
     setup_s: float
     cfg: object                       # the port's ModelConfig
     config: dict                      # the configuration file
+    arch: object                      # its architecture's module
     chunk: int                        # prefill chunk, tokens
     es: int                           # bytes per element of the served dtype
     n: List[int]                      # prompt tokens of each request due
@@ -68,7 +69,8 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     cell = files.load(root, workload)
     dev = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False   # the router's products
-    cfg = deploy.model_config(cell.config)
+    arch = files.arch(cell.arch_dir, cell.config["reference"])
+    cfg = deploy.model_config(cell.config, arch)
     dtype = getattr(torch, cell.config["torch_dtype"])
     params = deploy.draw_weights(cfg, seed, dev, dtype)
     slos = cell.config["ttft_slo_s"]
@@ -81,7 +83,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     reqs = serve.requests(items)
     want = {reqs[i].rid for i in picked}
     capture = serve.Capture(want=want, kv_layers=check.kv_layers(
-        cfg.num_layers))
+        cfg.num_layers), handoff=arch.HANDOFF)
     dep = deploy.build(cfg, params, cell.config, cell.mix["max_seq"])
     serve.attach(dep, capture)
     if dev.type == "cuda":
@@ -117,7 +119,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     busy = stats.union((r.arrival, r.arrival + w)
                        for r, w in zip(win.requests, waited))
     run_ = Run(seconds=seconds, setup_s=setup_s, cfg=cfg, config=cell.config,
-               chunk=cell.config["deployment"]["chunk_tokens"],
+               arch=arch, chunk=cell.config["deployment"]["chunk_tokens"],
                es=dtype.itemsize, n=[r.num_tokens for r in win.requests],
                slo=[r.slo for r in win.requests], ttft=ttft, busy=busy,
                blocking=blocking, trace=tr)

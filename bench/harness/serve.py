@@ -3,11 +3,12 @@ each stamped with the time it was due, not the time `submit` returned, so a
 stall counts against the requests behind it.
 
 While the window runs, the prefills of the requests sampled for the
-correctness check leave their first-token logits and their handed-off KV
-at a few layers here: the harness takes each completed task off
+correctness check leave their first-token logits and their handed-off
+caches (the architecture's `HANDOFF` keys of the task's state) at a few
+layers here: the harness takes each completed task off
 `PrefillInstance.completed_tasks`, where the instance leaves it (with its
-whole (L, B, max_seq, K, hd) cache) for a consumer, and keeps copies of the
-sampled rows only.
+whole cache, every row max_seq long) for a consumer, and keeps copies of
+the sampled rows only.
 """
 from __future__ import annotations
 
@@ -24,12 +25,13 @@ from harness.traffic import Item
 @dataclass
 class Capture:
     """The program's outputs for the sampled requests: rid -> last-position
-    logits (V,) f32, and rid -> {layer: (k, v)} of its handed-off cache
-    rows (n, K, hd) in the cache dtype."""
+    logits (V,) f32, and rid -> {layer: (one tensor per `handoff` key)} of
+    its handed-off cache rows, the first n positions, in the cache dtype."""
     want: Set[int]
     kv_layers: Sequence[int]
+    handoff: Sequence[str] = ()       # the architecture's HANDOFF
     logits: Dict[int, torch.Tensor] = field(default_factory=dict)
-    kv: Dict[int, Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = \
+    kv: Dict[int, Dict[int, Tuple[torch.Tensor, ...]]] = \
         field(default_factory=dict)
 
 
@@ -52,8 +54,8 @@ def attach(dep, capture: Capture) -> None:
                 capture.logits[req.rid] = \
                     task.prefill_task.logits[i].float().clone()
                 capture.kv[req.rid] = {
-                    l: (st["k_cache"][l, i, :n].clone(),
-                        st["v_cache"][l, i, :n].clone())
+                    l: tuple(st[key][l, i, :n].clone()
+                             for key in capture.handoff)
                     for l in capture.kv_layers}
         # the instance keeps every completed task for a consumer; this is it
         inst.completed_tasks.clear()

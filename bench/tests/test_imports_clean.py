@@ -64,6 +64,7 @@ def test_a_run_loads_no_jax():
         "import sys; sys.path[:0] = [%r, %r]\n"
         "import harness.main, reference.decoder, repro_torch.launch.serve\n"
         "import repro_torch.serving.proxy\n"
+        "harness.main.files.arch(harness.main.deploy.ARCH_DIR, 'decoder')\n"
         "print(harness.main.forbidden_modules())\n"
         "sys.modules['flax'] = sys; sys.modules['repro.core'] = sys\n"
         "print(harness.main.forbidden_modules())\n"

@@ -1,10 +1,24 @@
-"""The benchmark's arithmetic against numpy and hand-worked cases."""
+"""The benchmark's arithmetic against numpy and hand-worked cases: the
+architecture-free helpers of harness/stats.py and the counts of
+bench/arch/decoder.py."""
 import math
 
 import numpy as np
 import pytest
 
-from harness import stats
+from conftest import BENCH
+from harness import files, stats
+from repro_torch.configs.base import ModelConfig
+
+decoder = files.arch(BENCH / "arch", "decoder")
+
+
+def _cfg(layers, d, H, K, hd, d_ff=1, vocab=1, experts=0, top_k=0):
+    return ModelConfig(name="hand", family="moe" if experts else "dense",
+                       num_layers=layers, d_model=d, num_heads=H,
+                       num_kv_heads=K, d_ff=d_ff, vocab_size=vocab,
+                       head_dim=hd, num_experts=experts,
+                       experts_per_token=top_k)
 
 
 @pytest.mark.parametrize("q", [0, 10, 50, 90, 95, 99, 100])
@@ -48,8 +62,8 @@ def _loop_work(Sq, q_offset, H, K, hd, es):
 
 @pytest.mark.parametrize("Sq,off", [(1, 0), (512, 0), (512, 3584), (37, 1024)])
 def test_attention_work_closed_form_equals_the_pair_loop(Sq, off):
-    assert stats.attention_work(Sq, off, 32, 4, 128, 2) == \
-        _loop_work(Sq, off, 32, 4, 128, 2)
+    assert decoder.attention_work(Sq, off, _cfg(1, 4096, 32, 4, 128), None,
+                                  2) == _loop_work(Sq, off, 32, 4, 128, 2)
 
 
 def test_attention_bound_by_hand():
@@ -57,11 +71,13 @@ def test_attention_bound_by_hand():
     # pairs 512*513/2 = 131328 -> 4*128*16*131328 = 1.0758e9 operations
     # (1.0878 us at 989 TFLOP/s); bytes 2*(2*512*16*128 + 2*512*2*128)
     # = 4.719e6 (1.4087 us at 3.35 TB/s): bytes bound it
-    b = stats.prompt_attention_bound(512, 512, 1, 16, 2, 128, 2)
+    b = decoder.prompt_attention_bound(512, 512, _cfg(1, 2048, 16, 2, 128),
+                                       None, 2)
     assert b == pytest.approx(4718592 / 3.35e12)
     # two chunks of a 1024-token prompt over 36 layers add up per chunk
-    two = stats.prompt_attention_bound(1024, 512, 36, 16, 2, 128, 2)
-    o1, b1 = stats.attention_work(512, 512, 16, 2, 128, 2)
+    cfg = _cfg(36, 2048, 16, 2, 128)
+    two = decoder.prompt_attention_bound(1024, 512, cfg, None, 2)
+    o1, b1 = decoder.attention_work(512, 512, cfg, None, 2)
     assert two == pytest.approx(36 * (b + max(o1 / 989e12, b1 / 3.35e12)))
 
 
@@ -69,19 +85,17 @@ def test_model_flops_by_hand():
     # d 4, H 2, K 1, hd 2, d_ff 3, vocab 5, one layer, n 2:
     # projections 4*(2+2)*2 + 2*2*4 = 48, SwiGLU 3*4*3 = 36 per token;
     # 2*2*84 = 336, pairs 3 -> 4*2*2*3 = 48, head 2*4*5 = 40
-    assert stats.model_flops(2, layers=1, d=4, H=2, K=1, hd=2, d_ff=3,
-                             vocab=5) == 336 + 48 + 40
+    assert decoder.model_flops(2, _cfg(1, 4, 2, 1, 2, d_ff=3, vocab=5),
+                               None) == 336 + 48 + 40
     # MoE: router 4*8 = 32 and top-2 of 3*4*3 = 72 instead of 36
-    assert stats.model_flops(2, layers=1, d=4, H=2, K=1, hd=2, d_ff=3,
-                             vocab=5, experts=8, top_k=2) == \
+    assert decoder.model_flops(2, _cfg(1, 4, 2, 1, 2, d_ff=3, vocab=5,
+                                       experts=8, top_k=2), None) == \
         2 * 2 * (48 + 32 + 72) + 48 + 40
 
 
 def test_ttft_p50_reader_in_ms_and_silent_past_half_unfinished():
     from types import SimpleNamespace
 
-    from harness import files
-    from conftest import BENCH
     read = files.reader(BENCH / "metrics", "ttft_median_ms")
     assert read(SimpleNamespace(ttft=[0.1, 0.3, math.inf])) == \
         pytest.approx(300.0)
