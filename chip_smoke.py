@@ -10,7 +10,8 @@ Phases; the first failure exits non-zero and prints no result:
  1. device: the card's name and power limit (nvidia-smi); build the CUDA
     sources of `src/repro_torch/kernels/csrc/` with nvcc, one process each,
     in parallel (timed). From the SASS (cuobjdump): the prefill kernel's
-    wgmma bodies must hold wgmma (HGMMA) and TMA load (UTMALDG)
+    wgmma bodies (head_dim 64 and 128, and the q/k 192, v 128 latent
+    attention body) must hold wgmma (HGMMA) and TMA load (UTMALDG)
     instructions, its head_dim 256 body mma.sync (HMMA) and cp.async
     (LDGSTS); `decode_attn.cu` must hold the split-KV body and its
     combine kernel alone, every body with cp.async (LDGSTS), the bf16 ones
@@ -29,8 +30,10 @@ Phases; the first failure exits non-zero and prints no result:
     (K 4: 8 query heads per KV head), and RecurrentGemma-9B's head_dim 256
     with one KV head (a 4096-token prefill in a 2048 window, a resumed
     chunk, a ragged ring decode, a verify case; timed: the prefill
-    `win2048@4096 hd256 K1` and the decode `B1ring2048 hd256`). At them in
-    bf16 the kernel, the
+    `win2048@4096 hd256 K1` and the decode `B1ring2048 hd256`), and
+    Kanana-2-30B-A3B's up-projected latent attention (32 heads of q/k 192,
+    v 128; the chunks of 512 at q_offset 0, 3584 and 15872, each of which
+    must launch the 192/128 body once). At them in bf16 the kernel, the
     plain version and one `F.scaled_dot_product_attention` call (a
     yardstick the port never calls) are timed with CUDA events (the calls
     queued behind a spin of the card, so host launch gaps are not timed),
@@ -326,6 +329,10 @@ MAIN_PATH_PREFILL = [
 ]
 # timed L2-cold like decode: one query row reads the whole 16.8 MB of K/V
 COLD_PREFILL = {"resume1@4095"}
+# Kanana-2-30B-A3B's up-projected latent attention, 32 heads of q/k 192 and
+# v 128, at the served chunk of 512: label, q_offset (kv_len q_offset + 512)
+MLA_PREFILL = [("chunk512@0", 0), ("chunk512@3584", 3584),
+               ("chunk512@15872", 15872)]
 MAIN_PATH_DECODE = [
     # label, per-row kv_len, K
     ("B1", [3000], 8),
@@ -473,8 +480,8 @@ def breakdown(torch, label, fn, top: int = 6, cpu_ops=()) -> None:
     return {key: under.get(key, (0.0, 0))[0] / 1e3 for key in cpu_ops}
 
 
-BODIES = ("prefill_tc_kernel", "prefill_mma_kernel", "prefill_kernel",
-          "split_kernel", "combine_kernel")
+BODIES = ("prefill_tc_kernel", "prefill_mla_kernel", "prefill_mma_kernel",
+          "prefill_kernel", "split_kernel", "combine_kernel")
 
 
 def kernel_label(fn: str):
@@ -506,21 +513,21 @@ def sass_counts(build, lib_path: str, ops_):
 
 
 def sass_report(build, libs) -> None:
-    """The prefill kernel's wgmma bodies must hold wgmma (HGMMA) and TMA
-    loads (UTMALDG), its head_dim 256 body mma.sync (HMMA) and cp.async
+    """The prefill kernel's wgmma bodies (hd 64, 128 and q/k 192, v 128)
+    must hold wgmma (HGMMA) and TMA loads (UTMALDG), its head_dim 256 body mma.sync (HMMA) and cp.async
     (LDGSTS); `decode_attn.cu` must hold the split-KV body and
     its combine kernel alone (2 dtypes x 5 head dims each), every body with
     cp.async (LDGSTS), the bf16 bodies with mma.sync (HMMA) and the f32
     bodies without (no TF32)."""
     pre = {fn: c for fn, c in sass_counts(
         build, libs["flash_prefill"], ("HGMMA", "UTMALDG")).items()
-        if "prefill_tc_kernel" in fn}
+        if "prefill_tc_kernel" in fn or "prefill_mla_kernel" in fn}
     for fn, c in sorted(pre.items()):
         print(f"SASS {kernel_label(fn)}: {json.dumps(c)}")
-    if len(pre) != 2 or not all(n > 0 for c in pre.values()
-                                for n in c.values()):
-        fail("the tensor-core prefill bodies (hd 64, 128) lack HGMMA or "
-             "UTMALDG instructions in their SASS")
+    if len(pre) != 3 or sum("prefill_mla_kernel" in fn for fn in pre) != 1 \
+            or not all(n > 0 for c in pre.values() for n in c.values()):
+        fail("the tensor-core prefill bodies (hd 64, 128, q/k 192 v 128) "
+             "lack HGMMA or UTMALDG instructions in their SASS")
     mma = {fn: c for fn, c in sass_counts(
         build, libs["flash_prefill"], ("HMMA", "LDGSTS", "HGMMA")).items()
         if "prefill_mma_kernel" in fn}
@@ -561,6 +568,16 @@ def ptxas_report(log: str, smem_bytes) -> None:
             print(f"ptxas {body}<{dtype},{hd}>: "
                   f"{line.split(':', 1)[1].strip()}; {spills}; dynamic smem "
                   f"{smem_bytes(body, dtype, hd)}")
+
+
+def mla_prefill_work(Sq, H, q_offset, es, dq=192, dv=128):
+    """Operations and bytes of a causal chunk of Sq queries at q_offset
+    with per-head keys of width dq and values of dv (the up-projected
+    latent attention): 2 * (dq + dv) per visible pair and head; q and o
+    once, each key and value once."""
+    pairs = Sq * q_offset + Sq * (Sq + 1) // 2
+    return (2.0 * (dq + dv) * H * pairs,
+            es * H * (Sq * (dq + dv) + (q_offset + Sq) * (dq + dv)))
 
 
 def prefill_work(B, Sq, H, K, hd, q_offset, kv_len, es, window=0,
@@ -3056,7 +3073,8 @@ def main() -> None:
         dec_smem = build.load("decode_attn").decode_split_smem_bytes
 
         def smem(body, dtype, hd):
-            if body in ("prefill_tc_kernel", "prefill_mma_kernel"):
+            if body in ("prefill_tc_kernel", "prefill_mla_kernel",
+                        "prefill_mma_kernel"):
                 return f"{pre_smem(hd)} bytes"
             if body in ("combine_kernel", "prefill_kernel"):
                 return "0 bytes (static only)"
@@ -3227,6 +3245,40 @@ def main() -> None:
                 *prefill_work(1, Sq, H, K, hd, qoff, kv_len, es))
             record[name] = row
             print(f"  {name}: {json.dumps(row)}", flush=True)
+        for label, qoff in MLA_PREFILL if dtype == torch.bfloat16 else ():
+            Sq, kv_len = 512, qoff + 512
+            q = randn((1, Sq, H, 192), dtype)
+            k = randn((1, kv_len, H, 192), dtype)
+            v = randn((1, kv_len, H, 128), dtype)
+            name = f"flash_prefill_attention mla {label}"
+            kcounts.reset()
+            got = flash_prefill_attention(q, k, v, qoff, kv_len)
+            launched = kcounts.read(["flash_prefill_mla",
+                                     "flash_prefill_wgmma",
+                                     "chunked_prefill_attention_ref"])
+            if launched != {"flash_prefill_mla": 1, "flash_prefill_wgmma": 1,
+                            "chunked_prefill_attention_ref": 0}:
+                fail(f"{name}: launches {launched}, not the 192/128 body's "
+                     "one")
+            err = check(f"{name} wgmma", dtype, got,
+                        ref.chunked_prefill_attention_ref(
+                            q, k, v, q_offset=qoff, kv_len=kv_len))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = torch.arange(kv_len, device=dev)[None, :] <= \
+                qoff + torch.arange(Sq, device=dev)[:, None]
+            row = dict(
+                ms=cuda_ms(torch, lambda: flash_prefill_attention(
+                    q, k, v, qoff, kv_len)),
+                plain_ms=cuda_ms(torch, lambda: ref.chunked_prefill_attention_ref(
+                    q, k, v, q_offset=qoff, kv_len=kv_len), iters=5),
+                library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask)),
+                max_abs_err=err)
+            row["bound_ms"], row["bound_by"] = bound(
+                *mla_prefill_work(Sq, H, qoff, es))
+            record[name] = row
+            print(f"  {name}: {json.dumps(row)} share of the bound "
+                  f"{row['bound_ms'] / row['ms']:.4f}", flush=True)
         for label, lens, K in MAIN_PATH_DECODE:
             B = len(lens)
             q = randn((B, H, hd), dtype)

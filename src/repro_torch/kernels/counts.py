@@ -15,9 +15,10 @@ _lock = threading.Lock()
 _counts: Counter = Counter()
 
 
-def bump(name: str) -> None:
+def bump(name: str, n: int = 1) -> None:
+    """Add n (a launch, by default) to the counter `name`."""
     with _lock:
-        _counts[name] += 1
+        _counts[name] += n
 
 
 def read(names: Iterable[str]) -> Dict[str, int]:

@@ -12,7 +12,7 @@
 // q/k/v/o in bf16, about 1300 FLOP per byte, far above the card's ~295 bf16
 // FLOP per byte of HBM, so the bound is the arithmetic rate.
 //
-// Three bodies; the C entry point picks one by dtype and head_dim:
+// Four bodies; the C entry point picks one by dtype and head_dim:
 //
 // * bf16 at head_dim 64 or 128 (all of Llama3-8B's prefill attention):
 //   `prefill_tc_kernel`, on the tensor cores.
@@ -61,6 +61,18 @@
 //    - Left for later: split-KV for short chunks (tail100@2048 gives 32
 //      blocks), packing the 4 query heads of a KV head into one block, a
 //      TMA store of O.
+//
+// * bf16 at q/k width 192 and v width 128 (latent attention's up-projected
+//   heads, Kanana-2-30B-A3B): `prefill_mla_kernel`, the same body with the
+//   q/k and v widths apart. Its bound is work too: a 512-token chunk over a
+//   4096-token prefix (H 32, K 32) does 2 * 32 * (192 + 128) operations a
+//   visible pair, ~39 GFLOP, against ~166 MB of q/k/v/o, ~235 FLOP per byte;
+//   the first chunk of a prompt (~5.4 GFLOP, ~23 MB) is a little under the
+//   card's 295. Q (192 columns, three boxes) and two stages of 128-key K
+//   (192) and V (128) tiles take 208 KB of shared memory, where three
+//   stages would take 288 KB. S takes 12 k-slices of Q K^T; P V, the O
+//   accumulator (64 registers a thread) and the output are 128 wide, so the
+//   consumers hold what they hold at head_dim 128. V is never padded to 192.
 //
 // * bf16 at head_dim 256 (RecurrentGemma's): `prefill_mma_kernel`, on the
 //   tensor cores by mma.sync (its note is at the kernel). The wgmma body
@@ -247,27 +259,30 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 128;                // query rows per block, 64 per consumer
 constexpr int BK = 128;                // keys per K/V tile
-constexpr int STAGES = 3;              // K/V tiles in flight
+constexpr int STAGES = 3;              // K/V tiles in flight (GQA widths)
+constexpr int MLA_STAGES = 2;          // at q/k 192 and v 128 (smem)
 constexpr int BOX = 64;                // columns per TMA box: 128 bytes
 constexpr int NTHREADS = 3 * 128;      // producer + two consumer warpgroups
 constexpr int CONSUMERS = 2 * 128;     // arrivals that free a stage
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD>
+// QK: the q and k width, VD: the v (and output) width, NS: the stages
+template <int QK, int VD, int NS>
 struct Smem {
-  // HD / BOX boxes of [rows][BOX] each, 128B-swizzled; every box starts on
-  // a 1024-byte boundary (BQ * BOX * 2 and BK * BOX * 2 are multiples)
-  bf16 q[BQ * HD];
-  bf16 k[STAGES][BK * HD];
-  bf16 v[STAGES][BK * HD];
+  // QK / BOX (VD / BOX) boxes of [rows][BOX] each, 128B-swizzled; every box
+  // starts on a 1024-byte boundary (BQ * BOX * 2 and BK * BOX * 2 are
+  // multiples)
+  bf16 q[BQ * QK];
+  bf16 k[NS][BK * QK];
+  bf16 v[NS][BK * VD];
   uint64_t q_full;
-  uint64_t full[STAGES];               // the stage's K and V have landed
-  uint64_t empty[STAGES];              // both consumers are done with it
+  uint64_t full[NS];                   // the stage's K and V have landed
+  uint64_t empty[NS];                  // both consumers are done with it
 };
 
-template <int HD>
+template <int QK, int VD, int NS>
 constexpr size_t smem_bytes() {
-  return sizeof(Smem<HD>) + 1024;      // room to align the base to 1024
+  return sizeof(Smem<QK, VD, NS>) + 1024;   // room to align the base
 }
 
 // the O accumulator's product for one 16-key slice
@@ -287,16 +302,16 @@ __device__ __forceinline__ void pv_mma<128>(float (&o)[64],
   wgmma_m64n128k16_rs(o, a, d);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS, 1)
-prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
-                  const __grid_constant__ CUtensorMap tm_k,
-                  const __grid_constant__ CUtensorMap tm_v,
-                  bf16* __restrict__ o, int Sq, int T_len, int H, int K,
-                  long long o_sb, long long o_ss, int q_offset, int kv_len,
-                  int causal, int window, float scale_log2) {
-  extern __shared__ uint8_t smem_raw[];
-  Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(
+// The body of both tensor-core kernels: q/k of width QK, v and the output
+// of width VD, NS stages of K/V tiles; the tensor maps are the kernel's
+// __grid_constant__ parameters.
+template <int QK, int VD, int NS>
+__device__ __forceinline__ void tc_body(
+    uint8_t* smem_raw, const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+    const CUtensorMap& tm_v, bf16* __restrict__ o, int Sq, int T_len, int H,
+    int K, long long o_sb, long long o_ss, int q_offset, int kv_len,
+    int causal, int window, float scale_log2) {
+  Smem<QK, VD, NS>& sm = *reinterpret_cast<Smem<QK, VD, NS>*>(
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
 
   const int bh = blockIdx.y;
@@ -319,7 +334,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
 #pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], CONSUMERS);
     }
@@ -331,22 +346,24 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---- producer: one thread issues every TMA load ----------------------
     regs_release<24>();
     if (threadIdx.x == 0 && n_tiles > 0) {
-      mbar_arrive_expect_tx(&sm.q_full, BQ * HD * 2);
+      mbar_arrive_expect_tx(&sm.q_full, BQ * QK * 2);
 #pragma unroll
-      for (int c = 0; c < HD / BOX; ++c)
+      for (int c = 0; c < QK / BOX; ++c)
         tma_load_4d(sm.q + c * BQ * BOX, &tm_q, &sm.q_full, c * BOX, h,
                     q_start, b);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % STAGES;
-        mbar_wait(&sm.empty[s], ((t / STAGES) & 1) ^ 1);
-        mbar_arrive_expect_tx(&sm.full[s], 2 * BK * HD * 2);
+        const int s = t % NS;
+        mbar_wait(&sm.empty[s], ((t / NS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.full[s], BK * (QK + VD) * 2);
         const int k_lo = k_begin + t * BK;
 #pragma unroll
-        for (int c = 0; c < HD / BOX; ++c) {
-          tma_load_4d(sm.k[s] + c * BK * BOX, &tm_k, &sm.full[s], c * BOX,
-                      kvh, k_lo, b);
-          tma_load_4d(sm.v[s] + c * BK * BOX, &tm_v, &sm.full[s], c * BOX,
-                      kvh, k_lo, b);
+        for (int c = 0; c < (QK > VD ? QK : VD) / BOX; ++c) {
+          if (c < QK / BOX)
+            tma_load_4d(sm.k[s] + c * BK * BOX, &tm_k, &sm.full[s],
+                        c * BOX, kvh, k_lo, b);
+          if (c < VD / BOX)
+            tma_load_4d(sm.v[s] + c * BK * BOX, &tm_v, &sm.full[s],
+                        c * BOX, kvh, k_lo, b);
         }
       }
     }
@@ -367,9 +384,9 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg_lo = q_lo + 64 * cw;    // positions of the warpgroup's rows
   const int wg_hi = wg_lo + 63;
 
-  float acc[HD / 2];
+  float acc[VD / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < VD / 2; ++i) acc[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};   // row max, in log2 units
   float l_run[2] = {0.f, 0.f};         // this thread's part of the row sums
   float alpha[2];
@@ -382,7 +399,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   // box, boxes apart
   auto issue_qk = [&](int st) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < QK / 16; ++kk) {
       const uint64_t da = sw128_desc(
           sm.q + (kk / 4) * BQ * BOX + 64 * cw * BOX + (kk % 4) * 16, 16,
           1024);
@@ -398,8 +415,8 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t dv = sw128_desc(sm.v[st] + kk * 16 * BOX,
                                      BK * BOX * 2, 1024);
-      pv_mma<HD>(acc, p_hi[kk], dv);
-      pv_mma<HD>(acc, p_lo[kk], dv);
+      pv_mma<VD>(acc, p_hi[kk], dv);
+      pv_mma<VD>(acc, p_lo[kk], dv);
     }
   };
   // set every element of the tile at k_lo that its row may not see to
@@ -480,7 +497,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   // P_lo is p to 2^-16 with one f32-to-bf16 conversion per pair
   auto rescale_and_pack = [&]() {
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
+    for (int c = 0; c < VD / 8; ++c) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         acc[4 * c + 2 * i] *= alpha[i];
@@ -526,9 +543,9 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     rescale_and_pack();
   }
   for (int t = 1; t < n_tiles; ++t) {
-    const int st = t % STAGES;
-    const int prev = (t - 1) % STAGES;
-    mbar_wait(&sm.full[st], (t / STAGES) & 1);
+    const int st = t % NS;
+    const int prev = (t - 1) % NS;
+    mbar_wait(&sm.full[st], (t / NS) & 1);
     fence_regs(s);
     fence_regs(acc);
     take_turn();
@@ -550,7 +567,7 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(acc);
     take_turn();
     wgmma_fence();
-    issue_pv((n_tiles - 1) % STAGES);
+    issue_pv((n_tiles - 1) % NS);
     wgmma_commit();
     pass_turn(true);
     wgmma_wait<0>();
@@ -565,14 +582,45 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float inv = 1.f / (l == 0.f ? 1.f : l);
     const int row = q_start + r0 + 8 * i;
     if (row < Sq) {
-      bf16* op = o + b * o_sb + (long long)row * o_ss + h * HD + 2 * t4;
+      bf16* op = o + b * o_sb + (long long)row * o_ss + h * VD + 2 * t4;
 #pragma unroll
-      for (int c = 0; c < HD / 8; ++c)
+      for (int c = 0; c < VD / 8; ++c)
         *reinterpret_cast<__nv_bfloat162*>(op + 8 * c) =
             __floats2bfloat162_rn(acc[4 * c + 2 * i] * inv,
                                   acc[4 * c + 2 * i + 1] * inv);
     }
   }
+}
+
+// q, k and v of one width HD (64 or 128): GQA prefill attention
+template <int HD>
+__global__ void __launch_bounds__(NTHREADS, 1)
+prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  bf16* __restrict__ o, int Sq, int T_len, int H, int K,
+                  long long o_sb, long long o_ss, int q_offset, int kv_len,
+                  int causal, int window, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  tc_body<HD, HD, STAGES>(smem_raw, tm_q, tm_k, tm_v, o, Sq, T_len, H, K,
+                          o_sb, o_ss, q_offset, kv_len, causal, window,
+                          scale_log2);
+}
+
+// q and k of width QK, v and the output of width VD: latent attention's
+// up-projected heads
+template <int QK, int VD>
+__global__ void __launch_bounds__(NTHREADS, 1)
+prefill_mla_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   bf16* __restrict__ o, int Sq, int T_len, int H, int K,
+                   long long o_sb, long long o_ss, int q_offset, int kv_len,
+                   int causal, int window, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  tc_body<QK, VD, MLA_STAGES>(smem_raw, tm_q, tm_k, tm_v, o, Sq, T_len, H,
+                              K, o_sb, o_ss, q_offset, kv_len, causal,
+                              window, scale_log2);
 }
 
 using EncodeTiled = CUresult (*)(
@@ -640,12 +688,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (!err) err = encode(&tk, k, HD, K, kv_rows, B, k_ss, k_sb, BK);
   if (!err) err = encode(&tv, v, HD, K, kv_rows, B, v_ss, v_sb, BK);
   if (err) return err;
+  constexpr size_t smem = smem_bytes<HD, HD, STAGES>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       prefill_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<HD>()));
+      static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  prefill_tc_kernel<HD><<<grid, NTHREADS, smem_bytes<HD>(), stream>>>(
+  prefill_tc_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), Sq, T_len, H, K, o_sb, o_ss,
+      q_offset, kv_len, causal, window, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the latent-attention body at q/k width QK and v width VD
+template <int QK, int VD>
+int launch_mla(const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int T_len, int H, int K, long long q_sb,
+               long long q_ss, long long k_sb, long long k_ss,
+               long long v_sb, long long v_ss, long long o_sb,
+               long long o_ss, int q_offset, int kv_len, int causal,
+               int window, float scale, cudaStream_t stream) {
+  const int kv_rows = max(1, min(kv_len, T_len));
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, QK, H, Sq, B, q_ss, q_sb, BQ);
+  if (!err) err = encode(&tk, k, QK, K, kv_rows, B, k_ss, k_sb, BK);
+  if (!err) err = encode(&tv, v, VD, K, kv_rows, B, v_ss, v_sb, BK);
+  if (err) return err;
+  constexpr size_t smem = smem_bytes<QK, VD, MLA_STAGES>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_mla_kernel<QK, VD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  prefill_mla_kernel<QK, VD><<<grid, NTHREADS, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), Sq, T_len, H, K, o_sb, o_ss,
       q_offset, kv_len, causal, window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
@@ -921,19 +996,28 @@ void launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the (head, dim)
-// axes of q, k, v and o are dense. bf16 at head_dim 64 or 128 runs the
-// wgmma body, bf16 at 256 the mma.sync body, and both set *tensor_core to
-// 1; everything else (f32 at 16, 32, 64, 128 or 256; bf16 at 16 or 32)
-// runs the CUDA-core body and sets it to 0. Returns cudaGetLastError()
-// after launch,
-// or the error that stopped it.
+// axes of q, k, v and o are dense; hd is the q/k width, hd_v the v and
+// output width. bf16 at head_dim 64 or 128 runs the wgmma body, bf16 at 256
+// the mma.sync body, bf16 at q/k 192 and v 128 the latent-attention wgmma
+// body, and all set *tensor_core to 1; everything else at hd_v == hd (f32
+// at 16, 32, 64, 128 or 256; bf16 at 16 or 32) runs the CUDA-core body and
+// sets it to 0. Returns cudaGetLastError() after launch, or the error that
+// stopped it.
 extern "C" int flash_prefill_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int Sq, int T_len, int H, int K, int hd, long long q_sb, long long q_ss,
-    long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-    long long o_sb, long long o_ss, int q_offset, int kv_len, int causal,
-    int window, float scale, void* stream, int* tensor_core) {
+    int Sq, int T_len, int H, int K, int hd, int hd_v, long long q_sb,
+    long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+    long long v_ss, long long o_sb, long long o_ss, int q_offset, int kv_len,
+    int causal, int window, float scale, void* stream, int* tensor_core) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd_v != hd) {
+    *tensor_core = dtype == 1 && hd == 192 && hd_v == 128;
+    if (!*tensor_core) return static_cast<int>(cudaErrorInvalidValue);
+    return tc::launch_mla<192, 128>(q, k, v, o, B, Sq, T_len, H, K, q_sb,
+                                    q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss,
+                                    q_offset, kv_len, causal, window, scale,
+                                    s);
+  }
   *tensor_core = dtype == 1 && (hd == 64 || hd == 128 || hd == 256);
   if (*tensor_core && hd == 256) {
     return hd256::launch(q, k, v, o, B, Sq, T_len, H, K, q_sb, q_ss, k_sb,
@@ -971,11 +1055,14 @@ extern "C" int flash_prefill_attention(
   return static_cast<int>(cudaGetLastError());
 }
 
-// dynamic shared memory of one tensor-core block at head_dim 64, 128 or 256
+// dynamic shared memory of one tensor-core block at head_dim 64, 128 or
+// 256, or at q/k 192 (v 128)
 extern "C" int flash_prefill_tc_smem_bytes(int hd) {
   if (hd == 256) return static_cast<int>(hd256::SMEM);
-  return static_cast<int>(hd == 64 ? tc::smem_bytes<64>()
-                                   : tc::smem_bytes<128>());
+  if (hd == 192)
+    return static_cast<int>(tc::smem_bytes<192, 128, tc::MLA_STAGES>());
+  return static_cast<int>(hd == 64 ? tc::smem_bytes<64, 64, tc::STAGES>()
+                                   : tc::smem_bytes<128, 128, tc::STAGES>());
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -49,7 +49,8 @@ def _mask(Sq: int, T: int, q_offset, kv_len, causal: bool, local_window: int,
 
 def _attention_ref(q, k, v, *, q_offset=0, kv_len=None, causal=True,
                    local_window=0) -> torch.Tensor:
-    """Full score matrix in f32; fully masked rows output 0."""
+    """Full score matrix in f32; fully masked rows output 0. v may be of
+    another width than q and k (latent attention's 128 against 192)."""
     B, Sq, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, K, H // K, hd).float()
@@ -63,7 +64,7 @@ def _attention_ref(q, k, v, *, q_offset=0, kv_len=None, causal=True,
     l = p.sum(dim=-1, keepdim=True)
     probs = p / torch.where(l == 0.0, torch.ones_like(l), l)
     out = torch.einsum("bkqst,btkh->bskqh", probs, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
 def chunked_prefill_attention_ref(
@@ -76,7 +77,8 @@ def chunked_prefill_attention_ref(
     causal: bool = True,
     local_window: int = 0,
 ) -> torch.Tensor:
-    """Plain version of `flash_prefill_attention`: (B, Sq, H, hd)."""
+    """Plain version of `flash_prefill_attention`: (B, Sq, H, v's
+    width)."""
     counts.bump("chunked_prefill_attention_ref")
     return _attention_ref(q, k, v, q_offset=q_offset, kv_len=kv_len,
                           causal=causal, local_window=local_window)

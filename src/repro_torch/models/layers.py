@@ -31,7 +31,8 @@ from repro_torch.kernels.ref import flash_attention_bwd_ref, naive_attention
 __all__ = ["rms_norm", "layer_norm", "rope_freqs", "rope_tables",
            "rope_rotate", "apply_rope",
            "sinusoidal_positions", "swiglu", "gelu_mlp", "moe_router",
-           "moe_apply", "moe_ffn", "naive_attention", "FlashAttention",
+           "moe_router_sigmoid", "moe_apply", "moe_ffn", "moe_ffn_shared",
+           "naive_attention", "FlashAttention",
            "blocked_attention", "causal_conv1d", "rglru", "rglru_step",
            "ssd_chunked", "ssd_step"]
 
@@ -211,6 +212,22 @@ def moe_router(x: torch.Tensor, w_router: torch.Tensor, k: int):
     return torch.softmax(weights, dim=-1), idx, logits
 
 
+def moe_router_sigmoid(x: torch.Tensor, w_router: torch.Tensor,
+                       bias: torch.Tensor, k: int, scale: float):
+    """DeepSeek-V3's `noaux_tc` router with one group (Kanana-2): x (B, S,
+    D) -> (weights (B, S, k) f32, indices (B, S, k) int64, scores (B, S, E)
+    f32). The scores are sigmoid(x W_r) in f32; the experts are the top k
+    of score + `bias` (the bias picks, it does not weigh); the weights are
+    the chosen scores over their sum, times `scale`."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("moe_router_sigmoid needs f32 products: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    scores = torch.sigmoid(x.float() @ w_router.float())
+    idx = torch.topk(scores + bias.float(), k, dim=-1).indices
+    w = scores.gather(-1, idx)
+    return w / (w.sum(-1, keepdim=True) + 1e-20) * scale, idx, scores
+
+
 def moe_groups(n_tokens: int, k: int, n_experts: int, d_ff: int, *,
                capacity_factor: float, min_capacity: int,
                group_size: int = 0) -> Tuple[int, int, int]:
@@ -380,6 +397,22 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate_up: torch.Tensor,
     return moe_apply(x, weights, idx, w_gate_up, w_down, k=k,
                      capacity_factor=capacity_factor,
                      min_capacity=min_capacity, group_size=group_size)
+
+
+def moe_ffn_shared(x: torch.Tensor, w_router: torch.Tensor,
+                   bias: torch.Tensor, w_gate_up: torch.Tensor,
+                   w_down: torch.Tensor, wi_shared: torch.Tensor,
+                   wd_shared: torch.Tensor, *, k: int, scale: float,
+                   capacity_factor: float, min_capacity: int = 4
+                   ) -> torch.Tensor:
+    """DeepSeek-V3's MoE FFN: the routed experts of `moe_router_sigmoid`
+    (through `moe_apply`) plus the shared experts, one SwiGLU every token
+    takes (wi_shared (D, 2, Fs), wd_shared (Fs, D))."""
+    weights, idx, _ = moe_router_sigmoid(x, w_router, bias, k, scale)
+    return moe_apply(x, weights, idx, w_gate_up, w_down, k=k,
+                     capacity_factor=capacity_factor,
+                     min_capacity=min_capacity) \
+        + swiglu(x, wi_shared, wd_shared)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,17 @@ Serving (`SegmentedPrefill`, the ragged decode step, speculation) takes the
 dense, vlm and uniform MoE stacks only, as in the reference; the pairs,
 ssm, the hybrid and audio are served by `prefill` and `decode_step`.
 
+Beyond the reference's families, a DeepSeek-V3-style decoder (`MLAConfig`,
+Kanana-2-30B-A3B): multi-head latent attention, leading dense layers and
+MoE layers of sigmoid-routed and shared experts, served through
+`SegmentedPrefill` and the ragged decode step (no speculation). Its cache
+is the latent: `k` holds c_kv (the normed latent, one head of
+kv_lora_rank) and `v` k_pe (the rotated key shared by the heads, one head
+of qk_rope_head_dim). A prefill up-projects the latent to per-head keys and
+values for the prefill kernel (q/k width 192, v width 128 at published
+size); a decode step attends through the latent itself (the absorbed form)
+in plain torch ops. It has no sharding rules.
+
 The same functions run sharded on DTensors inside
 `distributed.sharding.use_sharding`: `param_axes` and `cache_axes` give
 every leaf's logical dims, activations are tagged with `logical` at the
@@ -40,6 +51,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, _expanded_pattern
+from repro_torch.configs.mla import MLAConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import logical
 from repro_torch.kernels import ops
@@ -61,6 +73,11 @@ def _check_ported(cfg: ModelConfig) -> None:
             f"family {cfg.family!r} (num_experts={cfg.num_experts}, "
             f"moe_layer_freq={cfg.moe_layer_freq}) is not a family of the "
             f"reference: {FAMILIES}, MoE at moe_layer_freq 1 or 2")
+
+
+def is_mla(cfg: ModelConfig) -> bool:
+    """A DeepSeek-V3-style decoder with latent attention (`MLAConfig`)."""
+    return isinstance(cfg, MLAConfig)
 
 
 def _is_pairs(cfg: ModelConfig) -> bool:
@@ -171,6 +188,8 @@ def model_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                                    cfg.num_encoder_layers)
         out["layers"] = _stack(_attn_layer_shapes(cfg, cross=True),
                                cfg.num_layers)
+    elif is_mla(cfg):
+        out["layers"] = _mla_layer_shapes(cfg)
     elif _is_pairs(cfg):
         n_pairs = cfg.num_layers // 2
         out["pairs"] = {
@@ -244,6 +263,8 @@ def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
     axis is "layers". `distributed.sharding.tree_placements` maps them to
     placements."""
     _check_ported(cfg)
+    if is_mla(cfg):
+        raise NotImplementedError("no sharding rules for latent attention")
     out: Dict[str, Any] = {"embed": ("vocab", "d_model"),
                            "final_norm": (None,)}
     if not cfg.tie_embeddings:
@@ -275,8 +296,14 @@ def _at(group, l: int) -> Dict[str, torch.Tensor]:
 
 
 def layer_params(params: Params, l: int) -> Dict[str, torch.Tensor]:
-    """Layer `l`'s slice of every stacked leaf (views, no copies)."""
-    return _at(params["layers"], l)
+    """Layer `l`'s slice of every stacked leaf (views, no copies). In an MLA
+    stack the FFN's leaves are stacked over their own layers: a leading
+    dense layer gets `wi`/`wd` from `wi_dense`/`wd_dense`, an MoE layer its
+    experts and router (`_mla_layer_shapes`)."""
+    group = params["layers"]
+    if "wkv_b" in group:
+        return _mla_at(group, l)
+    return _at(group, l)
 
 
 def embed_tokens(cfg: ModelConfig, params: Params,
@@ -332,6 +359,13 @@ def ffn_block(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     x = _norm(cfg, p, h, "ln2")
     if "ln2_b" in p:
         y = L.gelu_mlp(x, p["wi"], p["bi"], p["wd"], p["bd"])
+    elif "router_bias" in p:
+        y = L.moe_ffn_shared(x, p["router"], p["router_bias"], p["wi"],
+                             p["wd"], p["wi_shared"], p["wd_shared"],
+                             k=cfg.experts_per_token,
+                             scale=cfg.routed_scaling_factor,
+                             capacity_factor=cfg.moe_capacity_factor,
+                             min_capacity=cfg.moe_min_capacity)
     elif "router" in p:
         y = L.moe_ffn(x, p["router"], p["wi"], p["wd"],
                       k=cfg.experts_per_token,
@@ -473,6 +507,171 @@ def ssm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Latent attention (`MLAConfig`): DeepSeek-V3's layer, as Kanana-2 has it
+# ---------------------------------------------------------------------------
+
+# the FFN leaves of an MLA stack's MoE layers, stacked over those layers
+_MLA_MOE_KEYS = ("router", "router_bias", "wi", "wd", "wi_shared",
+                 "wd_shared")
+
+
+def _mla_layer_shapes(cfg: MLAConfig) -> Dict[str, Tuple[int, ...]]:
+    """The `layers` group of an MLA stack. The attention's leaves and both
+    norms are stacked over every layer: wq (d, H * (dn + dr)), each head
+    [nope | rope]; wkv_a (d, rank + dr), [c_kv | k_pe]; kv_norm (rank,);
+    wkv_b (rank, H * (dn + dv)), each head [k_nope | v]; wo (H * dv, d). The
+    leading dense layers' SwiGLU (`wi_dense` (d, 2, F), `wd_dense`) is
+    stacked over those layers; the MoE layers' router, its correction bias,
+    the routed experts ((E, d, 2F) gate|up, (E, F, d)) and the shared
+    experts' SwiGLU over the MoE layers. Every leaf is in `layers`."""
+    d, H, E = cfg.d_model, cfg.num_heads, cfg.num_experts
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dv, r = cfg.v_head_dim, cfg.kv_lora_rank
+    out = _stack({"ln1": (d,), "wq": (d, H * (dn + dr)),
+                  "wkv_a": (d, r + dr), "kv_norm": (r,),
+                  "wkv_b": (r, H * (dn + dv)), "wo": (H * dv, d),
+                  "ln2": (d,)}, cfg.num_layers)
+    if cfg.first_k_dense:
+        out.update(_stack({"wi_dense": (d, 2, cfg.d_ff_dense),
+                           "wd_dense": (cfg.d_ff_dense, d)},
+                          cfg.first_k_dense))
+    out.update(_stack({"router": (d, E), "router_bias": (E,),
+                       "wi": (E, d, 2 * cfg.d_ff), "wd": (E, cfg.d_ff, d),
+                       "wi_shared": (d, 2, cfg.d_ff_shared),
+                       "wd_shared": (cfg.d_ff_shared, d)},
+                      cfg.num_moe_layers))
+    return out
+
+
+def _mla_at(group, l: int) -> Dict[str, torch.Tensor]:
+    """Layer `l` of an MLA stack: the attention's leaves, and `wi`/`wd` of
+    its dense FFN or its MoE layer's leaves."""
+    n_dense = len(group["wkv_b"]) - len(group["router"])
+    out = {}
+    for key, val in group.items():
+        if key in _MLA_MOE_KEYS:
+            if l >= n_dense:
+                out[key] = val[l - n_dense]
+        elif key.endswith("_dense"):
+            if l < n_dense:
+                out[key[:-len("_dense")]] = val[l]
+        else:
+            out[key] = val[l]
+    return out
+
+
+def rope_dim(cfg: ModelConfig) -> int:
+    """The width the rotary tables rotate: MLA's rotary part, else a head."""
+    return cfg.qk_rope_head_dim if is_mla(cfg) else cfg.resolved_head_dim
+
+
+def _mla_rope(cfg: MLAConfig, x: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor) -> torch.Tensor:
+    """The rotary dims x (..., dr) de-interleaved (even dims, then odd), as
+    the published code does with `rope_interleave` true, then rotated by
+    split halves by tables that broadcast against its halves."""
+    x = x.unflatten(-1, (x.shape[-1] // 2, 2)).transpose(-1, -2).flatten(-2)
+    return L.rope_rotate(x, cos, sin)
+
+
+def mla_project(cfg: MLAConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor):
+    """The per-token part of an MLA layer on its normed input x (..., d):
+    q (..., H, dn + dr) with the rotary part rotated, the latent c_kv (...,
+    rank) RMS-normed, and k_pe (..., dr) rotated; cos/sin (..., dr / 2) are
+    the tokens' rotary tables."""
+    dn, r = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    q = (x @ p["wq"]).unflatten(-1, (cfg.num_heads, -1))
+    ckv = x @ p["wkv_a"]
+    c = L.rms_norm(ckv[..., :r], p["kv_norm"], cfg.norm_eps)
+    q_pe = _mla_rope(cfg, q[..., dn:], cos[..., None, :], sin[..., None, :])
+    return (torch.cat([q[..., :dn], q_pe], dim=-1), c,
+            _mla_rope(cfg, ckv[..., r:], cos, sin))
+
+
+def mla_expand(cfg: MLAConfig, p: Dict[str, torch.Tensor], c: torch.Tensor,
+               k_pe: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The latent up-projected for the prefill kernel: c (B, T, rank) and
+    k_pe (B, T, dr) -> k (B, T, H, dn + dr), [k_nope | k_pe] with k_pe
+    shared by the heads, and v (B, T, H, dv), each dense."""
+    dn, w = cfg.qk_nope_head_dim, p["wkv_b"]
+    kv = (c.to(w.dtype) @ w).unflatten(-1, (cfg.num_heads, -1))
+    k = torch.cat([kv[..., :dn], k_pe[..., None, :].to(kv.dtype).expand(
+        *kv.shape[:-1], -1)], dim=-1)
+    return k, kv[..., dn:].contiguous()
+
+
+def _mla_layer(cfg: MLAConfig, positions: torch.Tensor,
+               p: Dict[str, torch.Tensor], h: torch.Tensor):
+    """One MLA layer and its FFN over the whole sequence: (h, (c_kv,
+    k_pe)), the latent (B, S, rank) and (B, S, dr) for the cache."""
+    x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    cos, sin = L.rope_tables(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    q, c, k_pe = mla_project(cfg, p, x, cos, sin)
+    k, v = mla_expand(cfg, p, c, k_pe)
+    h = h + _attention(q, k, v, causal=True).flatten(2) @ p["wo"]
+    return ffn_block(cfg, p, h), (c, k_pe)
+
+
+def _mla_decode_layer(cfg: MLAConfig, p: Dict[str, torch.Tensor],
+                      h: torch.Tensor, pos: torch.Tensor, k_l: torch.Tensor,
+                      v_l: torch.Tensor, lens: torch.Tensor):
+    """One token a row through an MLA layer and its FFN. The row's c_kv and
+    k_pe are written into its latent cache k_l (B, T, 1, rank) / v_l (B, T,
+    1, dr) at pos[b] in place; row b attends to keys [0, lens[b]) through
+    the latent itself (the absorbed form): scores (q_nope W_k) . c_kv + q_pe
+    . k_pe over sqrt(dn + dr), output (p . c_kv) W_v, all in f32, plain
+    torch ops. Returns (h, c_kv (B, rank), k_pe (B, dr))."""
+    B, dn = h.shape[0], cfg.qk_nope_head_dim
+    rows = torch.arange(B, device=h.device)
+    x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    cos, sin = L.rope_tables(pos[:, None], cfg.qk_rope_head_dim,
+                             cfg.rope_theta)
+    q, c, k_pe = mla_project(cfg, p, x, cos, sin)
+    k_l[rows, pos, 0] = c[:, 0].to(k_l.dtype)
+    v_l[rows, pos, 0] = k_pe[:, 0].to(v_l.dtype)
+    w = p["wkv_b"].float().unflatten(-1, (cfg.num_heads, -1))
+    q = q[:, 0].float()
+    lat, pe = k_l[:, :, 0].float(), v_l[:, :, 0].float()
+    s = torch.einsum("bhn,rhn,btr->bht", q[..., :dn], w[..., :dn], lat) \
+        + torch.einsum("bhd,btd->bht", q[..., dn:], pe)
+    keys = torch.arange(s.shape[-1], device=h.device)
+    s = s.masked_fill(keys >= lens[:, None, None], float("-inf"))
+    a = torch.softmax(s / cfg.qk_head_dim ** 0.5, dim=-1)
+    o = torch.einsum("bht,btr,rhv->bhv", a, lat, w[..., dn:])
+    h = h + o.reshape(B, 1, -1).to(h.dtype) @ p["wo"]
+    return ffn_block(cfg, p, h), c[:, 0], k_pe[:, 0]
+
+
+def _decode_mla(params: Params, cfg: MLAConfig, tokens: torch.Tensor,
+                cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """`decode_step` of an MLA stack: the ragged step with every row at
+    cache["pos"], on the cache itself."""
+    pos = int(cache["pos"])
+    logits, _, _ = _decode_mla_ragged(params, cfg, tokens, cache["k"],
+                                      cache["v"], [pos] * tokens.shape[0])
+    return logits, dict(cache, pos=pos + 1)
+
+
+def _decode_mla_ragged(params: Params, cfg: MLAConfig, tokens: torch.Tensor,
+                       k_gathered: torch.Tensor, v_gathered: torch.Tensor,
+                       kv_lens):
+    """`decode_step_ragged` of an MLA stack: k/v_gathered are the latent
+    (L, B, T, 1, rank) / (L, B, T, 1, dr); returns the new latent rows (L,
+    B, 1, rank) / (L, B, 1, dr) for the pool."""
+    pos = torch.as_tensor(kv_lens, device=tokens.device).to(torch.int64)
+    h = embed_tokens(cfg, params, tokens[:, None])
+    k_new, v_new = [], []
+    for l in range(cfg.num_layers):
+        h, c, k_pe = _mla_decode_layer(cfg, layer_params(params, l), h, pos,
+                                       k_gathered[l], v_gathered[l], pos + 1)
+        k_new.append(c[:, None])
+        v_new.append(k_pe[:, None])
+    return (lm_head(cfg, params, h)[:, 0], torch.stack(k_new),
+            torch.stack(v_new))
+
+
+# ---------------------------------------------------------------------------
 # Full-sequence forward
 # ---------------------------------------------------------------------------
 
@@ -594,6 +793,13 @@ def _run_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
             if cache is not None:
                 cache["h_tail"][t] = h_s
                 cache["conv_tail"][t] = c_s
+    elif is_mla(cfg):
+        for l in range(cfg.num_layers):
+            h, (c, k_pe) = unit(functools.partial(_mla_layer, cfg, positions),
+                                layer_params(params, l), h)
+            if cache is not None:
+                shd.write_seq(cache["k"][l], 0, c[:, :, None])
+                shd.write_seq(cache["v"][l], 0, k_pe[:, :, None])
     elif _is_pairs(cfg):
         pairs = params["pairs"]
         for t in range(cfg.num_layers // 2):
@@ -711,12 +917,16 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
     h*) are f32 whatever `dtype`; the hybrid's k/v are a ring of
     min(local_window or max_seq, max_seq) slots; the pairs' k/v lead with
     (L/2, 2); audio adds each decoder layer's cross K/V `xk`/`xv` over the
-    encoder_seq encoder positions. "pos" is a Python int in the port's
-    caches."""
+    encoder_seq encoder positions; MLA's k/v are its latent, c_kv and k_pe,
+    each one head wide. "pos" is a Python int in the port's caches."""
     _check_ported(cfg)
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     out: Dict[str, Tuple] = {}
-    if cfg.family == "ssm":
+    if is_mla(cfg):
+        lead = (cfg.num_layers, batch, max_seq, 1)
+        out["k"] = (lead + (cfg.kv_lora_rank,), dtype)
+        out["v"] = (lead + (cfg.qk_rope_head_dim,), dtype)
+    elif cfg.family == "ssm":
         din, N, nh, W = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
                          cfg.ssm_conv_width)
         out["ssm"] = ((cfg.num_layers, batch, nh, cfg.ssm_head_dim, N),
@@ -869,6 +1079,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     whatever pos is, and cross-attends on the same kernel over the cached
     encoder K/V. Returns (logits (B, V), cache)."""
     _check_ported(cfg)
+    if is_mla(cfg):
+        return _decode_mla(params, cfg, tokens, cache)
     if cfg.family == "ssm":
         return _decode_ssm(params, cfg, tokens, cache)
     if cfg.family == "hybrid":
@@ -1008,6 +1220,9 @@ def decode_step_ragged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             f"batched ragged decode unsupported for family={cfg.family!r} "
             f"(moe_layer_freq={cfg.moe_layer_freq}); use decode_step")
     _check_ported(cfg)
+    if is_mla(cfg):
+        return _decode_mla_ragged(params, cfg, tokens, k_gathered,
+                                  v_gathered, kv_lens)
     B = tokens.shape[0]
     dev = tokens.device
     pos = torch.as_tensor(kv_lens, device=dev).to(torch.int64)
@@ -1070,6 +1285,8 @@ def decode_verify_ragged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             f"speculative verify unsupported for family={cfg.family!r} "
             f"(moe_layer_freq={cfg.moe_layer_freq}); use decode_step")
     _check_ported(cfg)
+    if is_mla(cfg):
+        raise NotImplementedError("speculative verify of latent attention")
     B, S = tokens.shape
     dev = tokens.device
     pos = torch.as_tensor(kv_lens, device=dev).to(torch.int64)

@@ -11,7 +11,13 @@ Operator sets (paper §5.1 / §6.5):
     dense:  qkv_proj | attn | o_proj | gate_up_proj | down_proj
     moe:    qkv_proj | attn | o_proj | gate | experts
 A vlm runs the dense set; its patch embeddings replace the leading
-positions of chunk 0 (`start(..., vision_embeds=)`). Boundary granularity
+positions of chunk 0 (`start(..., vision_embeds=)`). A latent-attention
+stack (`MLAConfig`) runs the dense set at its leading dense layers and the
+MoE set after them (`layer_op_names`). There `qkv_proj` projects q and the
+latent (c_kv normed, q's and k_pe's rotary dims rotated), `attn` writes the
+chunk's latent into the task's cache, up-projects the visible rows [0,
+q_offset + Sc) to per-head keys and values and runs the prefill kernel on
+them, and `gate` also adds the shared experts. Boundary granularity
 is op / layer / block<k> / whole (Fig. 12). With ``chunk_tokens > 0`` the
 prompt is split into chunks, each running all layers at its q_offset
 (Fig. 15); the `attn` operator is the flash-prefill kernel on the card. As
@@ -42,9 +48,11 @@ CPU, runs the eager operators on its own state.
 With the tracer on (`repro_torch.tracing`), each step records a `segment`
 span of its host time, with its operator (or the granularity's group),
 layer and chunk, whether it replayed graphs (`graphed`), for the
-Execution Pool's task id it carries. `kernels.counts` counts the steps
-that replayed graphs, the eager ones and the graphs captured
-(`GRAPH_COUNTS`).
+Execution Pool's task id it carries; a latent-attention step that ran
+`attn` also the latent rows it up-projected (`kv_rows`) and its query rows
+(`q_rows`). `kernels.counts` counts the steps that replayed graphs, the
+eager ones and the graphs captured (`GRAPH_COUNTS`), and the latent rows
+up-projected (`mla_kv_rows`).
 """
 from __future__ import annotations
 
@@ -64,8 +72,10 @@ from repro_torch.kernels import counts
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.model import (_check_ported, _merge_vision,
-                                      _project_qkv, embed_tokens,
-                                      layer_params, lm_head)
+                                      _project_qkv, cache_shapes,
+                                      embed_tokens, is_mla, layer_params,
+                                      lm_head, mla_expand, mla_project,
+                                      rope_dim)
 
 State = Dict[str, Any]
 
@@ -83,9 +93,10 @@ _LIVE = {"attn": ("q", "k", "v"), "o_proj": ("o",), "down_proj": ("gu",),
 
 def op_names(cfg: ModelConfig) -> Tuple[str, ...]:
     """The operator set of a dense, vlm (a dense stack) or uniform MoE
-    stack; raises for the other families (interleaved MoE pairs, ssm, the
-    recurrent hybrid and audio), which the reference's segmented executor
-    does not wire either."""
+    stack (of a latent-attention stack: that of its MoE layers); raises for
+    the other families (interleaved MoE pairs, ssm, the recurrent hybrid
+    and audio), which the reference's segmented executor does not wire
+    either."""
     _check_ported(cfg)
     if cfg.num_experts:
         if cfg.moe_layer_freq != 1:
@@ -96,6 +107,29 @@ def op_names(cfg: ModelConfig) -> Tuple[str, ...]:
         return DENSE_OPS
     raise NotImplementedError(
         f"segmented executor: family {cfg.family!r} not wired")
+
+
+def layer_op_names(cfg: ModelConfig) -> List[Tuple[str, ...]]:
+    """Each layer's operator set: `op_names` everywhere but at a
+    latent-attention stack's leading dense layers, which run the dense
+    set."""
+    ops = op_names(cfg)
+    n_dense = cfg.first_k_dense if is_mla(cfg) else 0
+    return [DENSE_OPS if l < n_dense else ops
+            for l in range(cfg.num_layers)]
+
+
+def _mla_attention(cfg: ModelConfig, p, q: torch.Tensor, kc: torch.Tensor,
+                   vc: torch.Tensor, off: int, Sc: int, out=None):
+    """`attn` of a latent-attention layer once the chunk's latent is in the
+    layer's cache kc (B, T, 1, rank) / vc (B, T, 1, dr): the rows [0, off +
+    Sc) up-projected to keys and values, then the prefill kernel for the
+    chunk's queries q (B, Sc, H, dn + dr)."""
+    T = off + Sc
+    k, v = mla_expand(cfg, p, kc[:, :T, 0], vc[:, :T, 0])
+    counts.bump("mla_kv_rows", q.shape[0] * T)
+    return kops.prefill_attention(q, k, v, q_offset=off, kv_len=T,
+                                  causal=True, out=out)
 
 
 def mark(device: torch.device) -> Optional[torch.cuda.Event]:
@@ -216,9 +250,47 @@ def _make_op_fns(cfg: ModelConfig) -> Dict[str, Callable]:
                         min_capacity=cfg.moe_min_capacity)
         return dict(st, h=st["h"] + y, tmp=None)
 
-    return {"qkv_proj": qkv_proj, "attn": attn, "o_proj": o_proj,
-            "gate_up_proj": gate_up_proj, "down_proj": down_proj,
-            "gate": gate, "experts": experts}
+    fns = {"qkv_proj": qkv_proj, "attn": attn, "o_proj": o_proj,
+           "gate_up_proj": gate_up_proj, "down_proj": down_proj,
+           "gate": gate, "experts": experts}
+    if is_mla(cfg):
+        fns.update(_make_mla_op_fns(cfg))
+    return fns
+
+
+def _make_mla_op_fns(cfg: ModelConfig) -> Dict[str, Callable]:
+    """The operators a latent-attention stack runs otherwise: `qkv_proj`,
+    `attn` and `gate` (the sigmoid router, and the shared experts added)."""
+
+    def qkv_proj(params, st, l, off):
+        p = layer_params(params, l)
+        x = L.rms_norm(st["h"], p["ln1"], cfg.norm_eps)
+        cos, sin = L.rope_tables(off + torch.arange(x.shape[1],
+                                                    device=x.device),
+                                 cfg.qk_rope_head_dim, cfg.rope_theta)
+        return dict(st, tmp=mla_project(cfg, p, x, cos, sin))
+
+    def attn(params, st, l, off):
+        q, c, k_pe = st["tmp"]
+        B, Sc = q.shape[:2]
+        kc, vc = st["k_cache"], st["v_cache"]
+        kc[l, :, off:off + Sc, 0] = c.to(kc.dtype)
+        vc[l, :, off:off + Sc, 0] = k_pe.to(vc.dtype)
+        out = _mla_attention(cfg, layer_params(params, l), q, kc[l], vc[l],
+                             off, Sc)
+        return dict(st, tmp=out.reshape(B, Sc, -1))
+
+    def gate(params, st, l, off):
+        p = layer_params(params, l)
+        x = L.rms_norm(st["h"], p["ln2"], cfg.norm_eps)
+        w, idx, _ = L.moe_router_sigmoid(x, p["router"], p["router_bias"],
+                                         cfg.experts_per_token,
+                                         cfg.routed_scaling_factor)
+        return dict(st, h=st["h"] + L.swiglu(x, p["wi_shared"],
+                                             p["wd_shared"]),
+                    tmp=(x, w, idx))
+
+    return {"qkv_proj": qkv_proj, "attn": attn, "gate": gate}
 
 
 def _make_graphed_fns(cfg: ModelConfig) -> Dict[str, Callable]:
@@ -253,6 +325,25 @@ def _make_graphed_fns(cfg: ModelConfig) -> Dict[str, Callable]:
         buf["w"][:n].copy_(w)
         buf["idx"][:n].copy_(idx)
 
+    def mla_qkv_proj(p, buf, n):
+        x = L.rms_norm(buf["h"][:n], p["ln1"], cfg.norm_eps)
+        q, c, k_pe = mla_project(cfg, p, x, buf["cos"][:n], buf["sin"][:n])
+        buf["q"][:n].copy_(q.flatten(1))
+        buf["k"][:n].copy_(c)
+        buf["v"][:n].copy_(k_pe)
+
+    def mla_gate(p, buf, n):
+        x = L.rms_norm(buf["h"][:n], p["ln2"], cfg.norm_eps)
+        w, idx, _ = L.moe_router_sigmoid(x, p["router"], p["router_bias"],
+                                         cfg.experts_per_token,
+                                         cfg.routed_scaling_factor)
+        buf["x"][:n].copy_(x)
+        buf["w"][:n].copy_(w)
+        buf["idx"][:n].copy_(idx)
+        buf["h"][:n].add_(L.swiglu(x, p["wi_shared"], p["wd_shared"]))
+
+    if is_mla(cfg):
+        qkv_proj, gate = mla_qkv_proj, mla_gate
     return {"qkv_proj": qkv_proj, "o_proj": o_proj,
             "gate_up_proj": gate_up_proj, "down_proj": down_proj,
             "gate": gate}
@@ -313,13 +404,17 @@ class SegmentedPrefill:
         self.chunk_tokens = chunk_tokens
         self.cache_dtype = cache_dtype
         self.ops = op_names(cfg)
+        # each layer's operators: the same number at every layer, so a
+        # group is the same slots of each layer's set
+        self._layer_ops = layer_op_names(cfg)
+        self._mla = is_mla(cfg)
         op_fns = _make_op_fns(cfg)
 
-        per_layer = [op_fns[name] for name in self.ops]
+        slots = tuple(range(len(self.ops)))
         if granularity == "op":
-            groups: List[List[Callable]] = [[f] for f in per_layer]
+            groups: List[Tuple[int, ...]] = [(i,) for i in slots]
         elif granularity in ("layer", "whole") or granularity.startswith("block"):
-            groups = [per_layer]
+            groups = [slots]
         else:
             raise ValueError(granularity)
 
@@ -329,22 +424,19 @@ class SegmentedPrefill:
         elif granularity == "whole":
             self._block_layers = cfg.num_layers
 
-        def make_segment(fns, n_layers):
+        layer_ops = self._layer_ops
+
+        def make_segment(group, n_layers):
             def seg(params, st, l0, off):
                 for l in range(l0, min(l0 + n_layers, cfg.num_layers)):
-                    for f in fns:
-                        st = f(params, st, l, off)
+                    for i in group:
+                        st = op_fns[layer_ops[l][i]](params, st, l, off)
                 return st
             return seg
 
         self._segments = [make_segment(g, self._block_layers) for g in groups]
-        # the operators of each group, for the static-buffer path
-        self._group_ops = [(name,) for name in self.ops] \
-            if granularity == "op" else [self.ops]
-        # what a `segment` span calls each group: its operator, or the
-        # granularity where one group runs every operator of its layers
-        self._segment_names = list(self.ops) if granularity == "op" \
-            else [granularity]
+        # the slots of each layer's operators each group runs
+        self._groups = groups
         self._segments_per_chunk = (
             (cfg.num_layers + self._block_layers - 1) // self._block_layers
             * len(self._segments))
@@ -368,16 +460,24 @@ class SegmentedPrefill:
 
         def zeros(width, dtype=act):
             return torch.zeros((rows, width), dtype=dtype, device=self.device)
-        buf = {"h": zeros(cfg.d_model), "q": zeros(H * hd),
-               "k": zeros(K * hd), "v": zeros(K * hd), "o": zeros(H * hd),
-               "cos": zeros(hd // 2, torch.float32),
-               "sin": zeros(hd // 2, torch.float32)}
-        if "router" in layers:
+        # q, the two cache rows (k/v; the latent c_kv/k_pe) and attn's output
+        widths = (H * cfg.qk_head_dim, cfg.kv_lora_rank,
+                  cfg.qk_rope_head_dim, H * cfg.v_head_dim) if self._mla \
+            else (H * hd, K * hd, K * hd, H * hd)
+        half = rope_dim(cfg) // 2
+        buf = {"h": zeros(cfg.d_model), "cos": zeros(half, torch.float32),
+               "sin": zeros(half, torch.float32)}
+        buf.update(zip(("q", "k", "v", "o"), map(zeros, widths)))
+        # every operator some layer runs, in the order of a layer's set
+        names = list(dict.fromkeys(n for ops in self._layer_ops
+                                   for n in ops))
+        if "gate" in names:
             k = cfg.experts_per_token
             buf.update(x=zeros(cfg.d_model), w=zeros(k, torch.float32),
                        idx=zeros(k, torch.int64))
-        else:
-            buf["gu"] = zeros(layers["wi"].shape[-1])
+        if "gate_up_proj" in names:
+            buf["gu"] = zeros(layers["wi_dense" if self._mla
+                                     else "wi"].shape[-1])
         self._buf = buf
         # the task whose live tensors the buffers hold, and the stream and
         # event of the buffers' last step
@@ -392,14 +492,16 @@ class SegmentedPrefill:
         fns = _make_graphed_fns(cfg)
         self._graphs: Dict[Tuple[int, str, int], Callable[[], None]] = {}
         for b in self._buckets:
-            for name in self.ops:
+            for name in names:
                 if name not in GRAPHED_OPS:
                     continue
+                at = [l for l, ops in enumerate(self._layer_ops)
+                      if name in ops]
                 with on_stream(stream):
-                    fns[name](layer_params(self.params, 0), buf, b)
+                    fns[name](layer_params(self.params, at[0]), buf, b)
                 if stream is not None:
                     stream.synchronize()
-                for l in range(cfg.num_layers):
+                for l in at:
                     self._graphs[l, name, b] = _capture(functools.partial(
                         fns[name], layer_params(self.params, l), buf, b),
                         stream, pool)
@@ -412,7 +514,9 @@ class SegmentedPrefill:
         if within == 0 or task.done:
             return 0, ()
         lo, hi = self._chunk_bounds(task, chunk_idx)
-        nxt = self._group_ops[within % len(self._segments)][0]
+        block, group_idx = divmod(within, len(self._segments))
+        nxt = self._layer_ops[block * self._block_layers][
+            self._groups[group_idx][0]]
         return (task.state["tokens"].shape[0] * (hi - lo),
                 ("h", "cos", "sin") + _LIVE.get(nxt, ()))
 
@@ -444,6 +548,14 @@ class SegmentedPrefill:
         cfg, buf, n = self.cfg, self._buf, B * Sc
         K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
         kc, vc = task.state["k_cache"], task.state["v_cache"]
+        if self._mla:
+            kc[l, :, off:off + Sc, 0] = buf["k"][:n].view(B, Sc, -1)
+            vc[l, :, off:off + Sc, 0] = buf["v"][:n].view(B, Sc, -1)
+            _mla_attention(
+                cfg, layer_params(self.params, l),
+                buf["q"][:n].view(B, Sc, H, -1), kc[l], vc[l], off, Sc,
+                out=buf["o"][:n].view(B, Sc, H, cfg.v_head_dim))
+            return
         kc[l, :, off:off + Sc] = buf["k"][:n].view(B, Sc, K, hd)
         vc[l, :, off:off + Sc] = buf["v"][:n].view(B, Sc, K, hd)
         kops.prefill_attention(
@@ -479,13 +591,14 @@ class SegmentedPrefill:
                 h = _merge_vision(h, st["vision_embeds"])
             buf["h"][:n].copy_(h.reshape(n, -1))
             cos, sin = L.rope_tables(
-                lo + torch.arange(Sc, device=self.device),
-                cfg.resolved_head_dim, cfg.rope_theta)
+                lo + torch.arange(Sc, device=self.device), rope_dim(cfg),
+                cfg.rope_theta)
             buf["cos"][:n].view(B, Sc, -1).copy_(cos)
             buf["sin"][:n].view(B, Sc, -1).copy_(sin)
         graphed = False
         for l in range(l0, min(l0 + self._block_layers, cfg.num_layers)):
-            for name in self._group_ops[group_idx]:
+            for i in self._groups[group_idx]:
+                name = self._layer_ops[l][i]
                 if name == "attn":
                     self._attn(task, l, lo, B, Sc)
                 elif name == "experts":
@@ -518,7 +631,8 @@ class SegmentedPrefill:
               prefix_v=None, *, vision_embeds=None) -> PrefillTask:
         """Begin a prefill of `tokens` (B, S), padded rows of true lengths
         `lens` (default S each). Allocates the task's (L, B, max_seq, K, hd)
-        KV cache on the current stream.
+        KV cache (a latent-attention stack's latent, `cache_shapes`) on the
+        current stream.
 
         ``prefix_len > 0`` resumes over a cached prompt prefix: `prefix_k` /
         `prefix_v` (L, B, prefix_len, K, hd) seed the first positions of the
@@ -534,7 +648,6 @@ class SegmentedPrefill:
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
         B, S = tokens.shape
         cfgc = self.cfg
-        K, hd = cfgc.num_kv_heads, cfgc.resolved_head_dim
         chunk = self.chunk_tokens or (S - prefix_len)
         if vision_embeds is not None:
             if prefix_len:
@@ -545,9 +658,9 @@ class SegmentedPrefill:
                 raise ValueError(
                     f"{vision_embeds.shape[1]} patch embeddings do not fit "
                     f"the first chunk of {min(chunk, S)} tokens")
-        shape = (cfgc.num_layers, B, self.max_seq, K, hd)
-        kc = torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
-        vc = torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
+        shapes = cache_shapes(cfgc, B, self.max_seq, self.cache_dtype)
+        kc, vc = (torch.zeros(shapes[key][0], dtype=self.cache_dtype,
+                              device=self.device) for key in ("k", "v"))
         if prefix_len:
             if prefix_len >= S:
                 raise ValueError(f"prefix_len={prefix_len} must leave at "
@@ -636,10 +749,29 @@ class SegmentedPrefill:
             task.cursor += 1
         counts.bump("segment_graph_replay" if graphed else "segment_eager")
         if tr:
+            # an operator's name, or the granularity where one group runs
+            # every operator of its layers
+            op = self._layer_ops[l0][self._groups[group_idx][0]] \
+                if self.granularity == "op" else self.granularity
+            rows = self._latent_rows(task, chunk_idx, group_idx, l0) \
+                if self._mla else {}
             tracing.record("segment", t0, time.monotonic(), cause=task.task_id,
-                           op=self._segment_names[group_idx], layer=l0,
-                           chunk=chunk_idx, graphed=graphed)
+                           op=op, layer=l0, chunk=chunk_idx, graphed=graphed,
+                           **rows)
         return task.done
+
+    def _latent_rows(self, task: PrefillTask, chunk_idx: int,
+                     group_idx: int, l0: int) -> Dict[str, int]:
+        """A latent-attention step's span rows: the latent rows its `attn`
+        operators up-projected and their query rows (none without one)."""
+        n_attn = sum(self._layer_ops[l][i] == "attn" for l in range(
+            l0, min(l0 + self._block_layers, self.cfg.num_layers))
+            for i in self._groups[group_idx])
+        if not n_attn:
+            return {}
+        lo, hi = self._chunk_bounds(task, chunk_idx)
+        B = task.state["tokens"].shape[0] * n_attn
+        return dict(kv_rows=B * hi, q_rows=B * (hi - lo))
 
     def run_all(self, task: PrefillTask) -> torch.Tensor:
         """Uninterrupted execution (baseline / tests)."""

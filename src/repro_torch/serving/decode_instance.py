@@ -591,9 +591,11 @@ class DecodeInstance:
                     self._cv.notify_all()
 
     # --------------------------------- continuous-batching worker (slots > 1)
-    def _ensure_pool_locked(self, k: torch.Tensor, need_blocks: int) -> None:
+    def _ensure_pool_locked(self, k: torch.Tensor, v: torch.Tensor,
+                            need_blocks: int) -> None:
         """Create the paged pool on first admission (sized for 2x the slot
-        cap at this stream's footprint)."""
+        cap at this stream's footprint), its k and v rows as wide as the
+        handed-off cache's (a latent-attention stack's c_kv and k_pe)."""
         L_, K, hd = k.shape[0], k.shape[-2], k.shape[-1]
         if self.kv is None:
             blocks = max((2 * self.decode_max_batch + 1) * need_blocks + 1, 8)
@@ -601,7 +603,8 @@ class DecodeInstance:
                                    dtype=k.dtype, device=self.device,
                                    prefix_share=self.prefix_share,
                                    max_blocks=self.kv_max_blocks,
-                                   stream=self.stream)
+                                   stream=self.stream,
+                                   v_head_dim=v.shape[-1])
             # scratch sequence: the slot padding rows of the batched step
             # write into / gather from (never read through a kv_len mask)
             self.kv.allocate(_SCRATCH_SEQ, 1)
@@ -626,7 +629,7 @@ class DecodeInstance:
         need_blocks = (need_tokens + self.kv_block_size - 1) \
             // self.kv_block_size
         with self._kv_lock:
-            self._ensure_pool_locked(cache["k"], need_blocks)
+            self._ensure_pool_locked(cache["k"], cache["v"], need_blocks)
             if not self.kv.can_allocate(need_tokens):
                 # stay queued only if the pool COULD fit this stream once
                 # residents complete; grow for a larger footprint now
@@ -663,10 +666,11 @@ class DecodeInstance:
             keep = max(kv_len, int(length))
             k, v = k[:, None, :keep], v[:, None, :keep]
             if keep < need:
-                pad = list(k.shape)
-                pad[2] = need - keep
-                k = torch.cat([k, k.new_zeros(pad)], dim=2)
-                v = torch.cat([v, v.new_zeros(pad)], dim=2)
+                def padded(x):
+                    pad = list(x.shape)
+                    pad[2] = need - keep
+                    return torch.cat([x, x.new_zeros(pad)], dim=2)
+                k, v = padded(k), padded(v)
             self._sync()
         job.cache = {"k": k, "v": v, "pos": kv_len}
         self._in_pool.discard(rid)

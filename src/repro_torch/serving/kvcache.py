@@ -113,7 +113,9 @@ class PagedKVCache:
     """Block pool shared by all sequences on one instance.
 
     Storage layout: k/v pools of shape (L, num_blocks, block_size, K, hd)
-    on `device`. ``prefix_share=True`` turns on block-level prefix sharing
+    on `device`; the v pool's last axis is `v_head_dim` where given (a
+    latent-attention stack's pools hold c_kv and k_pe, one head each, of
+    512 and 64 at published size). ``prefix_share=True`` turns on block-level prefix sharing
     and ``host_cache_blocks > 0`` the host/disk tiers (module docstring);
     ``max_blocks`` caps `extend`'s geometric pool growth (0 = unbounded).
     """
@@ -127,7 +129,8 @@ class PagedKVCache:
                  copy_engine: Optional[BlockCopyEngine] = None,
                  host_bw: float = 25e9, host_latency: float = 5e-4,
                  disk_bw: float = 3e9, disk_latency: float = 5e-3,
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None,
+                 v_head_dim: int = 0):
         self.device = resolve_device(device)
         self.num_layers = num_layers
         self.num_blocks = num_blocks
@@ -136,9 +139,12 @@ class PagedKVCache:
         if stream is None and self.device.type == "cuda":
             stream = torch.cuda.current_stream(self.device)
         self.stream = stream
-        shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
-        self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        shape = (num_layers, num_blocks, block_size, num_kv_heads)
+        v_head_dim = v_head_dim or head_dim
+        self.k_pool = torch.zeros(shape + (head_dim,), dtype=dtype,
+                                  device=self.device)
+        self.v_pool = torch.zeros(shape + (v_head_dim,), dtype=dtype,
+                                  device=self.device)
         self.prefix_share = prefix_share
         self.tiered = host_cache_blocks > 0
         if self.tiered and not prefix_share:
@@ -168,7 +174,8 @@ class PagedKVCache:
                 self._own_disk_dir = True
             self.host_bw, self.host_latency = host_bw, host_latency
             self.disk_bw, self.disk_latency = disk_bw, disk_latency
-            self._bytes_per_token = (2 * num_layers * num_kv_heads * head_dim
+            self._bytes_per_token = (num_layers * num_kv_heads
+                                     * (head_dim + v_head_dim)
                                      * self.k_pool.element_size())
         else:
             self._mgr = PrefixBlockManager(num_blocks) if prefix_share \
@@ -517,13 +524,13 @@ class PagedKVCache:
         before writes queued there land, and keep stale blocks."""
         if extra_blocks <= 0:
             return
-        pad = list(self.k_pool.shape)
-        pad[1] = extra_blocks
+        def padded(pool):
+            pad = list(pool.shape)
+            pad[1] = extra_blocks
+            return torch.cat([pool, pool.new_zeros(pad)], dim=1)
         with on_stream(self.stream):
-            zeros = torch.zeros(pad, dtype=self.k_pool.dtype,
-                                device=self.device)
-            self.k_pool = torch.cat([self.k_pool, zeros], dim=1)
-            self.v_pool = torch.cat([self.v_pool, zeros], dim=1)
+            self.k_pool = padded(self.k_pool)
+            self.v_pool = padded(self.v_pool)
         if self._mgr is not None:
             self._mgr.grow(extra_blocks)
         else:
@@ -600,10 +607,11 @@ class PagedKVCache:
         b0 = start // bs
         nb = (T + bs - 1) // bs
         if nb * bs != T:
-            pad = list(k.shape)
-            pad[1] = nb * bs - T
-            k = torch.cat([k, k.new_zeros(pad)], dim=1)
-            v = torch.cat([v, v.new_zeros(pad)], dim=1)
+            def padded(x):
+                pad = list(x.shape)
+                pad[1] = nb * bs - T
+                return torch.cat([x, x.new_zeros(pad)], dim=1)
+            k, v = padded(k), padded(v)
         L_ = k.shape[0]
         k = k.reshape(L_, nb, bs, *k.shape[2:])
         v = v.reshape(L_, nb, bs, *v.shape[2:])

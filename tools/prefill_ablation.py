@@ -52,9 +52,9 @@ def _swap(src: str, old: str, new: str) -> str:
 ABLATIONS = {
     "full": lambda s: s,
     "no_load": lambda s: _swap(
-        s, "        mbar_arrive_expect_tx(&sm.full[s], 2 * BK * HD * 2);\n",
-        "        if (t >= STAGES) { mbar_arrive(&sm.full[s]); continue; }\n"
-        "        mbar_arrive_expect_tx(&sm.full[s], 2 * BK * HD * 2);\n"),
+        s, "        mbar_arrive_expect_tx(&sm.full[s], BK * (QK + VD) * 2);\n",
+        "        if (t >= NS) { mbar_arrive(&sm.full[s]); continue; }\n"
+        "        mbar_arrive_expect_tx(&sm.full[s], BK * (QK + VD) * 2);\n"),
     "no_softmax": lambda s: _swap(
         _swap(s, "    softmax(k_begin + t * BK);\n",
               "    alpha[0] = alpha[1] = 1.f;\n"),
@@ -62,7 +62,7 @@ ABLATIONS = {
     "no_exp": lambda s: _swap(
         s, "x = ex2(fmaf(x, scale_log2, -m_new));",
         "x = fmaf(x, scale_log2, -m_new) * 1e-3f;"),
-    "one_p": lambda s: _swap(s, "      pv_mma<HD>(acc, p_lo[kk], dv);\n", ""),
+    "one_p": lambda s: _swap(s, "      pv_mma<VD>(acc, p_lo[kk], dv);\n", ""),
 }
 
 
@@ -136,14 +136,16 @@ def main() -> None:
     for name in names:
         lib, report = libs[name]
         fn = lib.flash_prefill_attention
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, L, L,
-                       L, I, I, I, I, ctypes.c_float, P, ctypes.POINTER(I)]
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, L, L, L, L, L, L,
+                       L, L, I, I, I, I, ctypes.c_float, P,
+                       ctypes.POINTER(I)]
 
         def call(q, k, v, qoff, kv_len, fn=fn):
             out = torch.empty_like(q)
             tc = ctypes.c_int(0)
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     1, 1, q.shape[1], T, H, K, hd, q.stride(0), q.stride(1),
+                     1, 1, q.shape[1], T, H, K, hd, hd, q.stride(0),
+                     q.stride(1),
                      k.stride(0), k.stride(1), v.stride(0), v.stride(1),
                      out.stride(0), out.stride(1), qoff, kv_len, 1, 0,
                      1 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream,
