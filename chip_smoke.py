@@ -172,8 +172,8 @@ Phases; the first failure exits non-zero and prints no result:
     Qwen2-1.5B, Qwen2.5-3B and Minitron-4B whole: a 1024-token `prefill`
     and 8 steps, each held to a `prefill`. Each path must launch both
     kernels (every prefill launch on a tensor-core body) and no plain
-    version; profiler breakdowns of a Whisper and a Llama4 step (the
-    expert `bmm` against its 32.2 GB bytes bound). Phase 2 also times
+    version; profiler breakdowns of a Whisper and a Llama4 step (beside
+    the bytes of the Llama4 step's routed experts). Phase 2 also times
     Whisper's `enc1500 nc hd64 K20` (non-causal) and `xattn B1 T1500 hd64
     K20`, InternVL2's `chunk512@3584 H64 K8` and `B4ragged H40 K8`
     (Llama4's heads); phase 3 also runs the tiny Whisper, InternVL2 and
@@ -513,7 +513,8 @@ def sass_counts(build, lib_path: str, ops_):
 
 
 def sass_report(build, libs) -> None:
-    """The prefill kernel's wgmma bodies (hd 64, 128 and q/k 192, v 128)
+    """The grouped expert kernel's two GEMMs (gate|up and down) must hold
+    wgmma (HGMMA) and TMA loads (UTMALDG). The prefill kernel's wgmma bodies (hd 64, 128 and q/k 192, v 128)
     must hold wgmma (HGMMA) and TMA loads (UTMALDG), its head_dim 256 body mma.sync (HMMA) and cp.async
     (LDGSTS); `decode_attn.cu` must hold the split-KV body and
     its combine kernel alone (2 dtypes x 5 head dims each), every body with
@@ -550,6 +551,16 @@ def sass_report(build, libs) -> None:
         if dec[fn]["LDGSTS"] == 0 or (dec[fn]["HMMA"] > 0) != bf16:
             fail(f"{kernel_label(fn)}: SASS {dec[fn]}; every body loads by "
                  "cp.async, and only the bf16 ones use mma.sync")
+    moe = {fn: c for fn, c in sass_counts(
+        build, libs["moe_grouped"], ("HGMMA", "UTMALDG")).items()
+        if "grouped_gemm_tc_kernel" in fn}
+    for fn, c in sorted(moe.items()):
+        print(f"SASS grouped_gemm_tc_kernel<"
+              f"{'gate_up' if 'ILi0E' in fn else 'down'}>: {json.dumps(c)}")
+    if len(moe) != 2 or not all(n > 0 for c in moe.values()
+                                for n in c.values()):
+        fail("the grouped expert GEMMs lack HGMMA or UTMALDG instructions "
+             "in their SASS")
 
 
 def ptxas_report(log: str, smem_bytes) -> None:
@@ -1356,10 +1367,107 @@ def serve_phase(np, ops, kcounts, dep, cfg, seed):
     return counts
 
 
+# (label, experts per token, capacity factor, B, S) of the grouped expert
+# kernel's phase-2 rows: Qwen3-30B-A3B and Kanana-2-30B-A3B (E 128, D 2048,
+# F 768) at the cells' drop-free capacities
+MOE_SHAPES = (("chunk512 qwen3", 8, 16.0, 1, 512),
+              ("chunk512 kanana", 6, 22.0, 1, 512),
+              ("n330 qwen3", 8, 16.0, 1, 330),
+              ("n4096 qwen3", 8, 16.0, 8, 512))
+MAIN_MOE = "chunk512 qwen3"
+
+
+def moe_kernel_rows(torch, dev, kcounts) -> dict:
+    """Phase 2's rows of the grouped expert kernel (`moe_grouped_ffn`) at
+    the MoE cells' shapes, with uniform routing over all 128 experts: its
+    output and its plain version's (`moe_apply_ref`) each against the same
+    computation in f32 (the kernel may not be less precise: relative norm
+    within 1.25x, largest element within 2x the plain version's), one
+    launch a call and no plain call, and the kernel's time (device time,
+    CUDA events) beside its bound, the plain version's and, as
+    `library_ms`, `torch._grouped_mm` on the rows already gathered and
+    sorted (gate|up, SiLU x up, down: no routing, gather or combine), which
+    the port never calls. The weights (1.21 GB) outweigh the L2, so every
+    call reads them from device memory. Bound: the routed products over
+    989 TFLOP/s, or the weights of the experts that have rows and x, h in
+    and out over 3.35 TB/s, the larger."""
+    from repro_torch.models import layers as L
+    E, D, Fd = 128, 2048, 768
+    gen = torch.Generator(device=dev).manual_seed(29)
+    wi = (torch.randn((E, D, 2 * Fd), generator=gen, device=dev)
+          / D ** 0.5).bfloat16()
+    wd = (torch.randn((E, Fd, D), generator=gen, device=dev)
+          / Fd ** 0.5).bfloat16()
+    rows = {}
+    for label, k, cf, B, S in MOE_SHAPES:
+        n = B * S
+        idx = torch.rand((n, E), generator=gen, device=dev).topk(
+            k, -1).indices.view(B, S, k)
+        x = torch.randn((B, S, D), generator=gen, device=dev).bfloat16()
+        w = torch.softmax(torch.randn((B, S, k), generator=gen, device=dev),
+                          -1)
+        kw = dict(k=k, capacity_factor=cf, min_capacity=4)
+        kcounts.reset()
+        got = L.moe_apply(x, w, idx, wi, wd, **kw)
+        launched = kcounts.read(["moe_grouped_gemm", "moe_grouped_wgmma",
+                                 "moe_apply_ref"])
+        want = L.moe_apply_ref(x, w, idx, wi, wd, **kw)
+        truth = L.moe_apply_ref(x.float(), w, idx, wi.float(), wd.float(),
+                                **kw)
+        t = truth.float()
+        (kn, km), (rn, rm) = [
+            (float((y.float() - t).norm() / t.norm()),
+             float((y.float() - t).abs().max())) for y in (got, want)]
+        name = f"moe_grouped_ffn {label}"
+        print(f"{name:<44} bf16 vs f32: kernel {kn:.3e} (max {km:.3e}), "
+              f"plain {rn:.3e} (max {rm:.3e})", flush=True)
+        if launched != {"moe_grouped_gemm": 1, "moe_grouped_wgmma": 1,
+                        "moe_apply_ref": 0}:
+            fail(f"{name}: launches {launched}")
+        if not (kn <= 1.25 * rn and km <= 2 * rm):
+            fail(f"{name}: the kernel is further from f32 than the plain "
+                 "version")
+        used = int(torch.unique(idx).numel())
+        ops_count = 2 * n * k * D * 3 * Fd
+        nbytes = used * 3 * D * Fd * 2 + 3 * n * D * 2
+        h = torch.randn((n, D), generator=gen, device=dev).bfloat16()
+        order = idx.view(-1).argsort(stable=True)
+        offs = torch.bincount(idx.view(-1), minlength=E).cumsum(0).to(
+            torch.int32)
+        xg = x.view(n, D).repeat_interleave(k, 0)[order].contiguous()
+        # _grouped_mm takes its (E, K, N) operand column-major
+        wi_t = wi.transpose(1, 2).contiguous().transpose(1, 2)
+        wd_t = wd.transpose(1, 2).contiguous().transpose(1, 2)
+
+        def library():
+            g, u = torch._grouped_mm(xg, wi_t, offs=offs).chunk(2, -1)
+            return torch._grouped_mm(torch.nn.functional.silu(g) * u, wd_t,
+                                     offs=offs)
+        row = dict(
+            ms=cuda_ms(torch, lambda: L.moe_apply(x, w, idx, wi, wd, **kw,
+                                                  residual=h)),
+            plain_ms=cuda_ms(torch, lambda: L.moe_apply_ref(
+                x, w, idx, wi, wd, **kw), iters=5),
+            library_ms=cuda_ms(torch, library),
+            max_abs_err=km, plain_max_abs_err=rm, experts_used=used)
+        del wi_t, wd_t, xg
+        row["bound_ms"], row["bound_by"] = bound(ops_count, nbytes)
+        if row["ms"] < 0.95 * row["bound_ms"]:
+            fail(f"{name}: {row['ms']:.5f} ms, under 0.95 of its bound: a "
+                 "measurement fault")
+        rows[name] = row
+        print(f"  {name}: {json.dumps(row)}; share of the bound "
+              f"{row['bound_ms'] / row['ms']:.4f}", flush=True)
+    del wi, wd
+    torch.cuda.empty_cache()
+    return rows
+
+
 def moe_phase(torch, np, ops, kcounts, build_deployment):
     """Phase 11: Qwen3-30B-A3B at its published width in bf16 with random
     weights (61.1 GB), on a card the earlier phases have released. Returns
     the serve's launch counts."""
+    from repro_torch.kernels import moe_grouped as MG
     from repro_torch.models import layers as L
     from repro_torch.models.model import decode_step_ragged
     gib = 2 ** 30
@@ -1386,7 +1494,7 @@ def moe_phase(torch, np, ops, kcounts, build_deployment):
     print("TTFT profile (s, synchronised):",
           json.dumps({n: round(t, 4) for n, t in dep.profile.items()}))
     print(f"build + profile {time.monotonic() - t0:.1f} s", flush=True)
-    # every layer's `bmm`s read all E experts' gate|up and down matrices
+    # a chunk that routes to every expert reads all E experts' matrices
     es = dep.params.dtype.itemsize
     E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
     expert_bytes = cfg.num_layers * E * 3 * D * Fd * es
@@ -1427,23 +1535,38 @@ def moe_phase(torch, np, ops, kcounts, build_deployment):
 
         # --- serve the launcher's mix ---------------------------------------
         counts = serve_phase(np, ops, kcounts, dep, cfg, seed=13)
+        counts.update(MG.counts())               # since the serve's reset
+        print(f"experts in the serve: moe_grouped_gemm "
+              f"{counts['moe_grouped_gemm']} calls, moe_apply_ref "
+              f"{counts['moe_apply_ref']}", flush=True)
+        if counts["moe_grouped_gemm"] == 0 or counts["moe_apply_ref"]:
+            fail("the served Qwen3 prefill did not run every `experts` step "
+                 "on the grouped kernel")
 
         # --- where the time goes --------------------------------------------
-        G, _, cap = L.moe_groups(512, cfg.experts_per_token, E, Fd,
-                                 capacity_factor=cfg.moe_capacity_factor,
-                                 min_capacity=cfg.moe_min_capacity)
-        chunk_ops = 2 * E * G * cap * D * 3 * Fd * cfg.num_layers
-        print(f"expert bmm bound per pass over the layers (a prefill chunk "
-              f"or a decode step; bf16, all {E} experts read): "
+        chunk_ops = 2 * 512 * cfg.experts_per_token * D * 3 * Fd \
+            * cfg.num_layers
+        print(f"expert bytes bound per pass over the layers (a prefill "
+              f"chunk that routes to every expert; bf16): "
               f"{expert_bytes / 1e9:.2f} GB, "
-              f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms of bytes; a "
-              f"512-token chunk ({G} group, cap {cap}) also needs "
-              f"{chunk_ops / PEAK_BF16_OPS * 1e3:.2f} ms of expert "
-              "operations")
+              f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms; a 512-token "
+              f"chunk's routed products "
+              f"{chunk_ops / PEAK_BF16_OPS * 1e3:.2f} ms of operations")
         toks = np.random.default_rng(14).integers(0, cfg.vocab_size,
                                                   (1, 4096))
+        ops.reset_counts()
+        ex.run_all(ex.start(toks))
+        torch.cuda.synchronize()
+        c = MG.counts()
+        steps = 4096 // 512 * cfg.num_layers
+        print(f"prefill 4096: {c['moe_grouped_gemm']} grouped expert calls "
+              f"for {steps} `experts` steps, moe_apply_ref "
+              f"{c['moe_apply_ref']}", flush=True)
+        if c["moe_grouped_gemm"] != steps or c["moe_apply_ref"]:
+            fail("a Qwen3 prefill did not launch the grouped kernel once per "
+                 "`experts` step")
         breakdown(torch, "prefill 4096 (chunk 512, op granularity)",
-                  lambda: ex.run_all(ex.start(toks)), cpu_ops=("aten::bmm",))
+                  lambda: ex.run_all(ex.start(toks)))
         L_, K_, hd_ = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
         k_g = torch.zeros((L_, 4, 4096, K_, hd_), dtype=dep.params.dtype,
                           device="cuda")
@@ -1452,8 +1575,7 @@ def moe_phase(torch, np, ops, kcounts, build_deployment):
         step_toks = torch.tensor([1, 2, 3, 4], device="cuda")
         breakdown(torch, "decode_step_ragged B 4, kv_len 263..4095",
                   lambda: decode_step_ragged(dep.params, cfg, step_toks,
-                                             k_g, v_g, lens_t),
-                  cpu_ops=("aten::bmm",))
+                                             k_g, v_g, lens_t))
         del k_g, v_g
     finally:
         dep.shutdown()
@@ -1802,7 +1924,9 @@ def check_calls(check, label, kept) -> None:
                 q, k, v, kw.get("q_offset", 0), kw.get("kv_len"),
                 causal=kw.get("causal", True),
                 local_window=kw.get("local_window", 0))
-            want = ref.chunked_prefill_attention_ref(q, k, v, **kw)
+            # the static-buffer path passes its output buffer as `out`
+            want = ref.chunked_prefill_attention_ref(
+                q, k, v, **{a: x for a, x in kw.items() if a != "out"})
             what = (f"prefill q {tuple(q.shape)} T {k.shape[1]} q_offset "
                     f"{kw.get('q_offset', 0)} kv_len {kw.get('kv_len')} "
                     f"causal {kw.get('causal', True)}")
@@ -2007,8 +2131,8 @@ def pairs_run(torch, np, ops, cfg, params, check, S=2048, n_steps=16,
     decode tests do): a one-token decode step never drops an expert pair,
     and with one pair the K/V of both layers come before any MoE output, so
     the published capacity's drops in the first prefill change nothing the
-    steps read. Then a profiler breakdown of one step with the time under
-    `aten::bmm`. Returns the launches by path."""
+    steps read. Then a profiler breakdown of one step beside the bytes of
+    its routed experts. Returns the launches by path."""
     import dataclasses
 
     from repro_torch.models.model import decode_step, prefill
@@ -2020,24 +2144,20 @@ def pairs_run(torch, np, ops, cfg, params, check, S=2048, n_steps=16,
     main = run_launches(cfg, pre, dec)
     es = params.dtype.itemsize
     n_moe = cfg.num_layers // 2
-    expert_bytes = n_moe * cfg.num_experts * 3 * cfg.d_model * cfg.d_ff * es
-    print(f"  expert bmm bytes per decode step (all {cfg.num_experts} "
-          f"experts of {n_moe} MoE layer(s)): {expert_bytes / 1e9:.2f} GB, "
-          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s",
+    expert_bytes = n_moe * cfg.experts_per_token * 3 * cfg.d_model \
+        * cfg.d_ff * es
+    print(f"  expert bytes per decode step (the grouped kernel reads the "
+          f"{cfg.experts_per_token} routed expert(s) of each of {n_moe} MoE "
+          f"layer(s)): {expert_bytes / 1e9:.3f} GB, "
+          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s",
           flush=True)
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, S + 1))).to(params.device)
     _, cache = prefill(params, cfg, {"tokens": toks[:, :S]}, max_seq=S + 1,
                        cache_dtype=params.dtype)
-    bmm_ms = breakdown(torch, f"{cfg.name} decode_step at position {S}",
-                       lambda: decode_step(params, cfg, toks[:, S],
-                                           dict(cache)),
-                       top=8, cpu_ops=("aten::bmm",)).get("aten::bmm")
-    if bmm_ms:
-        print(f"  the expert bmm: {bmm_ms:.2f} ms against its bytes bound "
-              f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms, share "
-              f"{expert_bytes / HBM_BYTES_PER_S * 1e3 / bmm_ms:.3f}",
-              flush=True)
+    breakdown(torch, f"{cfg.name} decode_step at position {S}",
+              lambda: decode_step(params, cfg, toks[:, S], dict(cache)),
+              top=8)
     return {"llama4 pair prefill + decode (phase 13)": main}
 
 
@@ -3446,6 +3566,7 @@ def main() -> None:
         record[name] = row
     del pool_k, pool_v, q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
+    record.update(moe_kernel_rows(torch, dev, kcounts))
 
     # --- 3. tiny model, card against CPU -------------------------------------
     phase("3. tiny Llama3-8B, Qwen3-MoE, Mamba2 and RecurrentGemma configs "
@@ -3794,6 +3915,17 @@ def main() -> None:
         if name == "flash_prefill_attention":    # phase 14's training shape
             entry["train"] = train_row
         kernels.append(entry)
+    name = "moe_grouped_ffn"
+    by_path = {"moe serve (phase 11)": moe_counts["moe_grouped_gemm"]}
+    kernels.append({
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_grouped.cu",
+        "replaces": "none: the experts' one-hot einsums "
+                    "(src/repro/models/layers.py moe_apply)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **{k: record[f"{name} {MAIN_MOE}"][k] for k in keys},
+        "shapes": {label: {k: record[f"{name} {label}"][k] for k in keys}
+                   for label, *_ in MOE_SHAPES if label != MAIN_MOE}})
     print(f"\nall phases passed in {time.monotonic() - t_start:.1f} s")
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))

@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_prefill", "decode_attn")
+SOURCES = ("flash_prefill", "decode_attn", "moe_grouped")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -90,11 +90,13 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, st
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built on first use."""
+    """The loaded library for `csrc/<name>.cu`. Its first use builds every
+    source that has no up-to-date library, in parallel, so a process pays
+    for one compile at most once and for the slowest source alone."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = build([name])[name]
+            path = build(SOURCES)[name]
             lib = ctypes.CDLL(path)
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p

@@ -163,7 +163,8 @@ def verify_attention(q, k, v, kv_len) -> torch.Tensor:
 
 
 # flash_prefill_wgmma counts the launches of flash_prefill_attention that
-# ran its tensor-core body (bf16 at head_dim 64 or 128)
+# ran its tensor-core body (bf16 at head_dim 64 or 128); the grouped expert
+# kernel's counters are read by `kernels.moe_grouped.counts()`
 _COUNTED = ("flash_prefill_attention", "flash_prefill_wgmma",
             "flash_decode_attention", "flash_verify_attention",
             "chunked_prefill_attention_ref", "decode_attention_ref",
@@ -176,4 +177,6 @@ def counts() -> Dict[str, int]:
 
 
 def reset_counts() -> None:
+    """Clear every counter of `kernels.counts`, the grouped expert
+    kernel's too."""
     _counts.reset()

@@ -6,7 +6,9 @@ RG-LRU and Mamba2's chunked SSD).
 
 Counterpart of src/repro/models/layers.py (the ported families' part of
 it). Plain functions on tensors; the large matrix products are
-`torch.matmul` and, for the experts, `torch.bmm`. Where the reference
+`torch.matmul`, and the experts of an MoE layer run the grouped kernel of
+`kernels/moe_grouped.py` on the card (`torch.bmm` in their plain version,
+`moe_apply_ref`). Where the reference
 scans with `lax.associative_scan`, the port uses a log-depth scan of
 tensor ops (RG-LRU) or a loop over chunks (SSD), never a Python loop over
 the sequence.
@@ -25,13 +27,15 @@ from torch.distributed.tensor._utils import \
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.distributed import sharding as shd
-from repro_torch.kernels import ops
+from repro_torch.kernels import counts, ops
+from repro_torch.kernels.moe_grouped import BLOCK_M, moe_grouped_ffn
 from repro_torch.kernels.ref import flash_attention_bwd_ref, naive_attention
 
 __all__ = ["rms_norm", "layer_norm", "rope_freqs", "rope_tables",
            "rope_rotate", "apply_rope",
            "sinusoidal_positions", "swiglu", "gelu_mlp", "moe_router",
-           "moe_router_sigmoid", "moe_apply", "moe_ffn", "moe_ffn_shared",
+           "moe_router_sigmoid", "moe_apply", "moe_apply_ref",
+           "moe_route_ref", "moe_ffn", "moe_ffn_shared",
            "naive_attention", "FlashAttention",
            "blocked_attention", "causal_conv1d", "rglru", "rglru_step",
            "ssd_chunked", "ssd_step"]
@@ -193,8 +197,9 @@ def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MoE: the reference's GShard-style grouped capacity dispatch, with gathers
-# and `bmm` in place of its one-hot einsums
+# MoE: the reference's GShard-style grouped capacity dispatch; on the card a
+# grouped GEMM over the kept pairs, in the plain version gathers and `bmm` in
+# place of its one-hot einsums
 # ---------------------------------------------------------------------------
 
 
@@ -264,21 +269,68 @@ def moe_queue(idx: torch.Tensor, n_groups: int, n_experts: int,
     return pos, pos < cap
 
 
+def moe_route_ref(idx: torch.Tensor, n_groups: int, n_experts: int,
+                  cap: int, *, e0: int = 0, n_local: int = 0,
+                  block_m: int = BLOCK_M):
+    """The routing of the card's grouped kernel (`kernels/moe_grouped.py`)
+    in plain tensor ops, for the tests that hold the kernel to it. The
+    pairs kept are `moe_queue`'s (pos < cap) whose expert is one of the
+    n_local (default all) experts [e0, e0 + n_local). Local expert el's
+    kept pairs take the rows [row_off[el], row_off[el] + counts[el]),
+    experts in order, each expert's pairs group-major and then by queue
+    position: the order of the slot table's columns in `moe_apply_ref`.
+    Its M tiles of `block_m` rows start at tile_off[el], the exclusive scan
+    of ceil(counts / block_m). Returns a dict of `pos` and `keep` (G, g * k),
+    `rows` (n * k) each pair's row or -1, `counts`, `row_off` and
+    `tile_off` (n_local) and `tiles` (T, 3): each M tile's (expert, first
+    row, end row)."""
+    El = n_local or n_experts
+    ig = idx.reshape(n_groups, -1)
+    pos, keep = moe_queue(ig, n_groups, n_experts, cap)
+    el = ig - e0
+    keep = keep & (el >= 0) & (el < El)
+    el = el.clamp(0, El - 1)
+    cnt = torch.zeros((n_groups, El), dtype=torch.int64, device=idx.device)
+    cnt.scatter_add_(1, el, keep.long())
+    grp_base = cnt.cumsum(0) - cnt
+    tot = cnt.sum(0)
+    row_off = tot.cumsum(0) - tot
+    n_tiles = (tot + block_m - 1) // block_m
+    tile_off = n_tiles.cumsum(0) - n_tiles
+    rows = torch.where(keep, row_off[el] + grp_base.gather(1, el) + pos, -1)
+    te = torch.repeat_interleave(torch.arange(El, device=idx.device),
+                                 n_tiles)
+    first = row_off[te] + (torch.arange(len(te), device=idx.device)
+                           - tile_off[te]) * block_m
+    return {"pos": pos, "keep": keep, "rows": rows.reshape(-1),
+            "counts": tot, "row_off": row_off, "tile_off": tile_off,
+            "tiles": torch.stack([te, first, row_off[te] + tot[te]], 1)}
+
+
 def moe_apply(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
               w_gate_up: torch.Tensor, w_down: torch.Tensor, *, k: int,
               capacity_factor: float = 1.25, min_capacity: int = 4,
-              group_size: int = 0) -> torch.Tensor:
+              group_size: int = 0,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The paper's `experts` operator given the routing (`gate` =
     `moe_router`). x: (B, S, D); weights / idx: (B, S, k); w_gate_up: (E, D,
-    2F) split on its last axis into [gate | up]; w_down: (E, F, D).
+    2F) split on its last axis into [gate | up]; w_down: (E, F, D). With
+    `residual` ((B, S, D) or (B * S, D), plain tensors only) the result is
+    added into it in place and it is returned (a segment's `h += y`).
 
     The reference's semantics exactly: its groups and capacity, its queue
     order, dropped pairs weighted 0 (the residual carries the token), and
-    the combine in the activation dtype. The dispatch is a table of token
-    indices (E, G * cap) built by scatter (one token per slot), a gather of
-    x into it (zeros in empty slots), one `bmm` per expert matrix over all
-    groups, and a gather of each token's k slots summed in f32. No float
-    atomics and no host sync: every step's order is fixed by the shapes.
+    the combine in the activation dtype. Routed by device:
+
+    - a CUDA tensor runs the grouped kernel (`kernels/moe_grouped.py`),
+      which computes only the kept pairs: six launches, no host sync and
+      every grid sized from the token count, so the operator can be
+      captured in a CUDA graph (the segment graphs leave it eager so far);
+    - a CPU or meta tensor runs the plain version, `moe_apply_ref`;
+    - a call that needs a gradient runs the plain version on any device:
+      it is differentiable through torch ops, and the JAX package has no
+      MoE kernel whose backward a kernel could port (its experts are
+      einsums that XLA differentiates).
 
     DTensor inputs (the sharded path) run on each rank's local shards, as
     GSPMD partitions it: the experts stay sharded where both expert weights
@@ -291,8 +343,11 @@ def moe_apply(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
     kw = dict(k=k, capacity_factor=capacity_factor,
               min_capacity=min_capacity, group_size=group_size)
     if isinstance(w_gate_up, DTensor):
+        if residual is not None:
+            raise ValueError("moe_apply: residual= takes plain tensors")
         return _moe_apply_sharded(x, weights, idx, w_gate_up, w_down, **kw)
-    return _moe_apply(x, weights, idx, w_gate_up, w_down, **kw)
+    return _moe_apply(x, weights, idx, w_gate_up, w_down, **kw,
+                      residual=residual)
 
 
 def _moe_apply_sharded(x, weights, idx, w_gate_up, w_down, **kw):
@@ -341,11 +396,51 @@ def _moe_apply_sharded(x, weights, idx, w_gate_up, w_down, **kw):
 
 
 def _moe_apply(x, weights, idx, w_gate_up, w_down, *, k, capacity_factor,
-               min_capacity, group_size, e0=0, n_experts=0) -> torch.Tensor:
-    """`moe_apply` on plain tensors. With `n_experts`, w_gate_up and w_down
-    hold only experts [e0, e0 + their length) of n_experts: every pair is
-    routed, only these experts run, and the other experts' pairs weigh 0
-    in the combine (a partial sum over the experts)."""
+               min_capacity, group_size, e0=0, n_experts=0,
+               residual=None) -> torch.Tensor:
+    """`moe_apply` on plain tensors, routed by device. With `n_experts`,
+    w_gate_up and w_down hold only experts [e0, e0 + their length) of
+    n_experts: every pair is routed, only these experts run, and the other
+    experts' pairs weigh 0 in the combine (a partial sum over the
+    experts)."""
+    kw = dict(k=k, capacity_factor=capacity_factor,
+              min_capacity=min_capacity, group_size=group_size, e0=e0,
+              n_experts=n_experts)
+    dev = x.device.type
+    if dev not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"no MoE path for device {x.device}")
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, weights, w_gate_up, w_down))
+    if dev != "cuda" or grad:
+        y = moe_apply_ref(x, weights, idx, w_gate_up, w_down, **kw)
+        return y if residual is None else residual.add_(
+            y.reshape(residual.shape))
+    B, S, D = x.shape
+    El, _, F2 = w_gate_up.shape
+    G, _, cap = moe_groups(B * S, k, n_experts or El, F2 // 2,
+                           capacity_factor=capacity_factor,
+                           min_capacity=min_capacity, group_size=group_size)
+    y = moe_grouped_ffn(
+        x.reshape(B * S, D).contiguous(),
+        weights.reshape(B * S, k).float().contiguous(),
+        idx.reshape(B * S, k).long().contiguous(), w_gate_up.contiguous(),
+        w_down.contiguous(), n_groups=G, cap=cap,
+        n_experts=n_experts, e0=e0,
+        residual=None if residual is None else residual.view(B * S, D))
+    return y.view(B, S, D) if residual is None else residual
+
+
+def moe_apply_ref(x, weights, idx, w_gate_up, w_down, *, k, capacity_factor,
+                  min_capacity, group_size=0, e0=0,
+                  n_experts=0) -> torch.Tensor:
+    """The plain version of `moe_apply` (CPU, meta and gradient calls, and
+    the card's yardstick): x (B, S, D) -> (B, S, D), with `_moe_apply`'s
+    expert range. The dispatch is a table of token indices (E, G * cap)
+    built by scatter (one token per slot), a gather of x into it (zeros in
+    empty slots), one `bmm` per expert matrix over all groups, and a
+    gather of each token's k slots summed in f32. No float atomics and no
+    host sync: every step's order is fixed by the shapes."""
+    counts.bump("moe_apply_ref")
     B, S, D = x.shape
     El, _, F2 = w_gate_up.shape
     E = n_experts or El

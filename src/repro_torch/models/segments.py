@@ -37,8 +37,10 @@ and token-count bucket (`token_buckets`), over static buffers of the
 executor: the resident task's hidden state, the operators' outputs and the
 chunk's RoPE tables, which are built once at the chunk's start and applied
 at the end of `qkv_proj`. `attn` (the kernel's offsets and lengths are
-per task and chunk) and `experts` (its groups and capacity follow the
-token count) stay eager and read and write the same buffers. A task
+per task and chunk) and `experts` stay eager and read and write the same
+buffers. On the card `experts` is the grouped kernel of `moe_apply`, which
+makes no host sync and sizes every grid from the token count, so it could
+be captured too; capturing it into these graphs is left for later. A task
 stepped while another is resident first spills the other's live tensors
 into that task's state and loads its own. Every bucket is captured when
 the executor is built, so no capture stalls a serving step; a task whose
@@ -564,16 +566,16 @@ class SegmentedPrefill:
             out=buf["o"][:n].view(B, Sc, H, hd))
 
     def _experts(self, task: PrefillTask, l: int, off: int, B: int, Sc: int):
-        """`experts` over the static buffers, on the chunk's B * Sc tokens."""
+        """`experts` over the static buffers, on the chunk's B * Sc tokens,
+        added into h in place (on the card by the kernel's combine)."""
         cfg, buf, n = self.cfg, self._buf, B * Sc
         p = layer_params(self.params, l)
-        y = L.moe_apply(buf["x"][:n].view(B, Sc, -1),
-                        buf["w"][:n].view(B, Sc, -1),
-                        buf["idx"][:n].view(B, Sc, -1), p["wi"], p["wd"],
-                        k=cfg.experts_per_token,
-                        capacity_factor=cfg.moe_capacity_factor,
-                        min_capacity=cfg.moe_min_capacity)
-        buf["h"][:n].add_(y.reshape(n, -1))
+        L.moe_apply(buf["x"][:n].view(B, Sc, -1),
+                    buf["w"][:n].view(B, Sc, -1),
+                    buf["idx"][:n].view(B, Sc, -1), p["wi"], p["wd"],
+                    k=cfg.experts_per_token,
+                    capacity_factor=cfg.moe_capacity_factor,
+                    min_capacity=cfg.moe_min_capacity, residual=buf["h"][:n])
 
     def _step_static(self, task: PrefillTask, chunk_idx: int, within: int,
                      group_idx: int, l0: int) -> bool:

@@ -479,3 +479,118 @@ def test_forced_preemptions_land_at_gate_and_experts(monkeypatch,
     assert len(seen) == 3
     for r, prompt in seen:
         assert got[r.rid] == _jax_greedy(jcfg, jparams, prompt), r.rid
+
+
+# --- the plain twin of the card's routing (`moe_route_ref`) -------------------
+
+# (id, tokens, k, experts, capacity factor, group_size, (e0, n_local), skew)
+ROUTE_CASES = [
+    ("one_token", 1, 8, 128, 16.0, 0, None, None),
+    ("n37_drop_free", 37, 8, 128, 16.0, 0, None, None),
+    ("n330_drops", 330, 8, 128, 1.25, 0, None, None),
+    ("n512_k6_drop_free", 512, 6, 128, 128 / 6, 0, None, None),
+    ("n512_k6_drops", 512, 6, 128, 1.25, 0, None, None),
+    ("groups_8x64_drops", 512, 8, 128, 1.25, 64, None, None),
+    ("groups_4x32_drop_free", 128, 4, 16, 4.0, 32, None, None),
+    ("one_expert_takes_all", 200, 8, 128, 16.0, 0, None, "one"),
+    ("one_expert_takes_all_drops", 200, 8, 128, 1.25, 0, None, "one"),
+    ("idle_experts", 300, 8, 128, 1.25, 0, None, "few"),
+    ("expert_range", 256, 8, 128, 16.0, 64, (32, 48), None),
+    ("expert_range_drops", 256, 8, 128, 1.0, 0, (100, 28), "few"),
+]
+
+
+def _route_idx(n, k, E, skew, seed):
+    """(n, k) distinct experts per token: uniform, or every token's slot 0
+    on expert 5 ("one"), or all drawn from 12 experts ("few")."""
+    rng = np.random.default_rng(seed)
+    pool = np.arange(E) if skew != "few" else rng.choice(E, 12, replace=False)
+    idx = np.stack([rng.choice(pool, k, replace=False) for _ in range(n)])
+    if skew == "one":
+        idx[idx == 5] = idx[:, :1][(idx == 5).any(1)].ravel()
+        idx[:, 0] = 5
+    return torch.as_tensor(idx, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_route_twin_rows_follow_the_slot_table(case):
+    """`moe_route_ref`, the routing the card's grouped kernel computes:
+    the kept pairs are `moe_queue`'s (pos < cap) within the expert range;
+    local expert el owns rows [row_off, row_off + counts) in the slot
+    table's column order (group, then queue position), every row taken
+    once; its M tiles of 128 rows start at the exclusive scan of ceil(counts
+    / 128) and cover those rows exactly."""
+    _, n, k, E, cf, gs, rng_, skew = case
+    idx = _route_idx(n, k, E, skew, seed=n + k)
+    e0, El = rng_ or (0, E)
+    G, g, cap = TL.moe_groups(n, k, E, 768, capacity_factor=cf,
+                              min_capacity=4, group_size=gs)
+    r = TL.moe_route_ref(idx, G, E, cap, e0=e0, n_local=El if rng_ else 0)
+    pos, keep = TL.moe_queue(idx.reshape(G, -1), G, E, cap)
+    ig = idx.reshape(G, -1)
+    in_range = (ig >= e0) & (ig < e0 + El)
+    assert torch.equal(r["pos"], pos)
+    assert torch.equal(r["keep"], keep & in_range)
+    if cf < E / k and skew == "one":
+        assert not keep.all()                      # the case drops pairs
+    rows = r["rows"].reshape(G, -1)
+    assert torch.equal(rows >= 0, r["keep"])
+    kept = rows[r["keep"]]
+    assert torch.equal(kept.sort().values, torch.arange(len(kept)))
+    # walking the rows in order visits (expert, group, position) in order
+    grp = torch.arange(G)[:, None].expand_as(ig)
+    key = ((ig - e0) * G + grp) * (g * k) + pos
+    order = kept.argsort()
+    assert bool((key[r["keep"]][order].diff() > 0).all())
+    counts = torch.bincount((ig - e0)[r["keep"]], minlength=El)
+    assert torch.equal(r["counts"], counts)
+    assert torch.equal(r["row_off"], counts.cumsum(0) - counts)
+    n_tiles = (counts + 127) // 128
+    assert torch.equal(r["tile_off"], n_tiles.cumsum(0) - n_tiles)
+    tiles = r["tiles"]
+    assert len(tiles) == int(n_tiles.sum()) <= (n * k + 127) // 128 + El
+    assert bool((tiles[:, 2] > tiles[:, 1]).all())
+    covered = torch.zeros(len(kept), dtype=torch.int64)
+    for e, lo, hi in tiles.tolist():
+        hi = min(hi, lo + 128)
+        assert r["row_off"][e] <= lo < hi <= r["row_off"][e] + counts[e]
+        covered[lo:hi] += 1
+    assert bool((covered == 1).all())
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES[1:6] + ROUTE_CASES[9:],
+                         ids=[c[0] for c in ROUTE_CASES[1:6]
+                              + ROUTE_CASES[9:]])
+def test_experts_over_the_twin_rows_equal_the_plain_version(case):
+    """The experts computed the kernel's way over the twin's rows (each
+    kept pair's token row gathered to its row, one product per expert over
+    its own rows, each token's k rows times their weights summed in f32)
+    equal `moe_apply_ref`'s slot table and all-expert `bmm` in f32, at
+    small widths (D 32, F 16)."""
+    _, n, k, E, cf, gs, rng_, skew = case
+    D, Fd = 32, 16
+    gen = torch.Generator().manual_seed(n)
+    idx = _route_idx(n, k, E, skew, seed=n + 1)
+    e0, El = rng_ or (0, E)
+    x = torch.randn(1, n, D, generator=gen)
+    w = torch.softmax(torch.randn(1, n, k, generator=gen), -1)
+    wi = torch.randn(El, D, 2 * Fd, generator=gen) / D ** 0.5
+    wd = torch.randn(El, Fd, D, generator=gen) / Fd ** 0.5
+    kw = dict(k=k, capacity_factor=cf, min_capacity=4, group_size=gs,
+              e0=e0, n_experts=E if rng_ else 0)
+    want = TL.moe_apply_ref(x, w, idx[None], wi, wd, **kw)
+    G, _, cap = TL.moe_groups(n, k, E, Fd, capacity_factor=cf,
+                              min_capacity=4, group_size=gs)
+    r = TL.moe_route_ref(idx, G, E, cap, e0=e0, n_local=El if rng_ else 0)
+    rows = r["rows"]
+    kept = rows >= 0
+    xg = torch.zeros(int(kept.sum()), D)
+    xg[rows[kept]] = x[0].repeat_interleave(k, 0)[kept]
+    ye = torch.zeros_like(xg)
+    for e in range(El):
+        lo, hi = int(r["row_off"][e]), int(r["row_off"][e] + r["counts"][e])
+        gate, up = (xg[lo:hi] @ wi[e]).chunk(2, -1)
+        ye[lo:hi] = (torch.nn.functional.silu(gate) * up) @ wd[e]
+    yk = torch.where(kept[:, None], ye[rows.clamp(min=0)], 0.0)
+    got = (yk * w.reshape(-1, 1)).reshape(n, k, D).sum(1)
+    torch.testing.assert_close(got, want[0], rtol=1e-5, atol=1e-6)
