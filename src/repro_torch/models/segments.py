@@ -2,7 +2,7 @@
 (§5.1, Fig. 6) on eager PyTorch.
 
 Counterpart of src/repro/models/segments.py. The prefill runs as a sequence
-of segments, each a plain function over a state dict that lives on the
+of segments, each one or more operators over buffers that live on the
 device; the host checks the preemption flag between segments, and a
 suspended task is simply one that is not stepped (its state stays on the
 device, nothing is recomputed on resume).
@@ -30,22 +30,24 @@ A prefill may resume over a cached prompt prefix (`start(prefix_len=P)`,
 prefix sharing): the cache rows below P are seeded and the chunk loop
 starts at operator offset P, so the kernel reads the seeded prefix.
 
-On the card the per-token operators (`GRAPHED_OPS`: every row of the
-chunk's flattened (B * Sc, .) tokens is computed alone, so padded rows
-change no valid one) are replayed from CUDA graphs, one per layer, operator
-and token-count bucket (`token_buckets`), over static buffers of the
-executor: the resident task's hidden state, the operators' outputs and the
-chunk's RoPE tables, which are built once at the chunk's start and applied
-at the end of `qkv_proj`. `attn` (the kernel's offsets and lengths are
-per task and chunk) and `experts` stay eager and read and write the same
-buffers. On the card `experts` is the grouped kernel of `moe_apply`, which
-makes no host sync and sizes every grid from the token count, so it could
-be captured too; capturing it into these graphs is left for later. A task
-stepped while another is resident first spills the other's live tensors
-into that task's state and loads its own. Every bucket is captured when
-the executor is built, so no capture stalls a serving step; a task whose
-chunk holds more tokens than the largest bucket, and every task on the
-CPU, runs the eager operators on its own state.
+Every operator has one body, over (rows, width) buffers of the chunk's
+flattened B * Sc tokens: the hidden state, the operators' outputs and the
+chunk's RoPE tables, built once at the chunk's start and applied at the
+end of `qkv_proj`. The executor holds one set at its largest token-count
+bucket (`token_buckets`); a task stepped while another is resident first
+spills the other's live rows into that task's state and loads its own. A
+task whose chunk holds more tokens than the largest bucket runs over
+buffers of its own, allocated with it at its row count, and never claims
+the executor's. On the card the per-token operators (`GRAPHED_OPS`: every
+row is computed alone, so padded rows change no valid one) over the
+executor's buffers are replayed from CUDA graphs, one per layer, operator
+and bucket, all captured when the executor is built so no capture stalls
+a serving step; `attn` (the kernel's offsets and lengths are per task and
+chunk) and `experts` run uncaptured over the same buffers. On the card
+`experts` is the grouped kernel of `moe_apply`, which makes no host sync
+and sizes every grid from the token count, so it could be captured too;
+capturing it is left for later. On the CPU, and above the largest bucket,
+each operator's body is called over the buffers at the chunk's row count.
 
 With the tracer on (`repro_torch.tracing`), each step records a `segment`
 span of its host time, with its operator (or the granularity's group),
@@ -88,7 +90,7 @@ GRAPHED_OPS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj", "gate")
 # steps that replayed graphs, steps that ran eagerly, graphs captured
 GRAPH_COUNTS = ("segment_graph_replay", "segment_eager",
                 "segment_graph_capture")
-# the static buffers live before each operator, besides h and the tables
+# the buffers live before each operator, besides h and the tables
 _LIVE = {"attn": ("q", "k", "v"), "o_proj": ("o",), "down_proj": ("gu",),
          "experts": ("x", "w", "idx")}
 
@@ -121,19 +123,6 @@ def layer_op_names(cfg: ModelConfig) -> List[Tuple[str, ...]]:
             for l in range(cfg.num_layers)]
 
 
-def _mla_attention(cfg: ModelConfig, p, q: torch.Tensor, kc: torch.Tensor,
-                   vc: torch.Tensor, off: int, Sc: int, out=None):
-    """`attn` of a latent-attention layer once the chunk's latent is in the
-    layer's cache kc (B, T, 1, rank) / vc (B, T, 1, dr): the rows [0, off +
-    Sc) up-projected to keys and values, then the prefill kernel for the
-    chunk's queries q (B, Sc, H, dn + dr)."""
-    T = off + Sc
-    k, v = mla_expand(cfg, p, kc[:, :T, 0], vc[:, :T, 0])
-    counts.bump("mla_kv_rows", q.shape[0] * T)
-    return kops.prefill_attention(q, k, v, q_offset=off, kv_len=T,
-                                  causal=True, out=out)
-
-
 def mark(device: torch.device) -> Optional[torch.cuda.Event]:
     """An event recorded on the current stream after the work enqueued so
     far, or None on the CPU (where every op has finished on return)."""
@@ -162,7 +151,7 @@ def on_stream(stream: Optional[torch.cuda.Stream]):
 
 
 def token_buckets(largest: int) -> List[int]:
-    """The token counts the static buffers run at, up to the first at or
+    """The token counts the executor's buffers run at, up to the first at or
     above `largest`: powers of two from 16 to 1024, then steps of 1.5x and
     4/3x (1536, 2048, 3072, 4096, ...). A chunk's count pads up to the
     next one: at most 2x below 1024 tokens, 1.5x above."""
@@ -175,8 +164,8 @@ def token_buckets(largest: int) -> List[int]:
 
 
 def _graphable(device: torch.device) -> bool:
-    """Whether the per-token operators run from graphs over static
-    buffers: on the card."""
+    """Whether the per-token operators replay CUDA graphs: on the
+    card."""
     return device.type == "cuda"
 
 
@@ -194,112 +183,11 @@ def _capture(fn: Callable[[], None], stream, pool) -> Callable[[], None]:
     return graph.replay
 
 
-# ---------------------------------------------------------------------------
-# Per-operator functions: fn(params, state, layer_idx, q_offset) -> state
-# ---------------------------------------------------------------------------
-
-
 def _make_op_fns(cfg: ModelConfig) -> Dict[str, Callable]:
-    K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
-
-    def qkv_proj(params, st, l, off):
-        p = layer_params(params, l)
-        x = L.rms_norm(st["h"], p["ln1"], cfg.norm_eps)
-        return dict(st, tmp=_project_qkv(cfg, p, x))
-
-    def attn(params, st, l, off):
-        q, k, v = st["tmp"]
-        B, Sc = q.shape[:2]
-        positions = off + torch.arange(Sc, device=q.device)[None, :]
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-        # the reference's functional dynamic_update_slice becomes an in-place
-        # write: the (L, B, max_seq, K, hd) cache is preallocated by start()
-        # and owned by this task alone
-        kc, vc = st["k_cache"], st["v_cache"]
-        kc[l, :, off:off + Sc] = k.to(kc.dtype)
-        vc[l, :, off:off + Sc] = v.to(vc.dtype)
-        out = kops.prefill_attention(
-            q, kc[l], vc[l], q_offset=off, kv_len=off + Sc, causal=True,
-            local_window=cfg.local_window)
-        return dict(st, tmp=out.reshape(B, Sc, H * hd))
-
-    def o_proj(params, st, l, off):
-        p = layer_params(params, l)
-        return dict(st, h=st["h"] + st["tmp"] @ p["wo"], tmp=None)
-
-    def gate_up_proj(params, st, l, off):
-        p = layer_params(params, l)
-        x = L.rms_norm(st["h"], p["ln2"], cfg.norm_eps)
-        return dict(st, tmp=L.gate_up(x, p["wi"]))
-
-    def down_proj(params, st, l, off):
-        p = layer_params(params, l)
-        return dict(st, h=st["h"] + st["tmp"] @ p["wd"], tmp=None)
-
-    def gate(params, st, l, off):
-        p = layer_params(params, l)
-        x = L.rms_norm(st["h"], p["ln2"], cfg.norm_eps)
-        w, idx, _ = L.moe_router(x, p["router"], cfg.experts_per_token)
-        return dict(st, tmp=(x, w, idx))
-
-    def experts(params, st, l, off):
-        p = layer_params(params, l)
-        x, w, idx = st["tmp"]
-        y = L.moe_apply(x, w, idx, p["wi"], p["wd"],
-                        k=cfg.experts_per_token,
-                        capacity_factor=cfg.moe_capacity_factor,
-                        min_capacity=cfg.moe_min_capacity)
-        return dict(st, h=st["h"] + y, tmp=None)
-
-    fns = {"qkv_proj": qkv_proj, "attn": attn, "o_proj": o_proj,
-           "gate_up_proj": gate_up_proj, "down_proj": down_proj,
-           "gate": gate, "experts": experts}
-    if is_mla(cfg):
-        fns.update(_make_mla_op_fns(cfg))
-    return fns
-
-
-def _make_mla_op_fns(cfg: ModelConfig) -> Dict[str, Callable]:
-    """The operators a latent-attention stack runs otherwise: `qkv_proj`,
-    `attn` and `gate` (the sigmoid router, and the shared experts added)."""
-
-    def qkv_proj(params, st, l, off):
-        p = layer_params(params, l)
-        x = L.rms_norm(st["h"], p["ln1"], cfg.norm_eps)
-        cos, sin = L.rope_tables(off + torch.arange(x.shape[1],
-                                                    device=x.device),
-                                 cfg.qk_rope_head_dim, cfg.rope_theta)
-        return dict(st, tmp=mla_project(cfg, p, x, cos, sin))
-
-    def attn(params, st, l, off):
-        q, c, k_pe = st["tmp"]
-        B, Sc = q.shape[:2]
-        kc, vc = st["k_cache"], st["v_cache"]
-        kc[l, :, off:off + Sc, 0] = c.to(kc.dtype)
-        vc[l, :, off:off + Sc, 0] = k_pe.to(vc.dtype)
-        out = _mla_attention(cfg, layer_params(params, l), q, kc[l], vc[l],
-                             off, Sc)
-        return dict(st, tmp=out.reshape(B, Sc, -1))
-
-    def gate(params, st, l, off):
-        p = layer_params(params, l)
-        x = L.rms_norm(st["h"], p["ln2"], cfg.norm_eps)
-        w, idx, _ = L.moe_router_sigmoid(x, p["router"], p["router_bias"],
-                                         cfg.experts_per_token,
-                                         cfg.routed_scaling_factor)
-        return dict(st, h=st["h"] + L.swiglu(x, p["wi_shared"],
-                                             p["wd_shared"]),
-                    tmp=(x, w, idx))
-
-    return {"qkv_proj": qkv_proj, "attn": attn, "gate": gate}
-
-
-def _make_graphed_fns(cfg: ModelConfig) -> Dict[str, Callable]:
-    """The per-token operators over static buffers: fn(p, buf, n) reads
-    and writes the leading n rows of each (rows, width) buffer of `buf`,
-    the chunk's tokens flattened. The same operations as `_make_op_fns`'s,
-    with `attn`'s RoPE at the end of `qkv_proj` from the chunk's tables."""
+    """The per-token operators over the executor's buffers: fn(p, buf, n)
+    reads and writes the leading n rows of each (rows, width) buffer of
+    `buf`, the chunk's tokens flattened, with layer params `p`. `attn`'s
+    RoPE runs at the end of `qkv_proj`, from the chunk's tables."""
     K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
 
     def qkv_proj(p, buf, n):
@@ -359,7 +247,12 @@ def _make_graphed_fns(cfg: ModelConfig) -> Dict[str, Callable]:
 @dataclass
 class PrefillTask:
     """A (possibly batched) prefill with device-resident state. The
-    Execution Pool advances `cursor`; suspension is simply ceasing to step."""
+    Execution Pool advances `cursor`; suspension is simply ceasing to step.
+    `state` holds the prompt (`tokens`, `lens`), the task's KV cache
+    (`k_cache`, `v_cache`) and the final hidden state `h_full`; a task
+    whose chunk holds more tokens than the executor's largest bucket also
+    buffers of its own (`buf`), and a task whose live rows another task's
+    step displaced from the executor's buffers their copies (`spill`)."""
     state: State
     prompt_len: int
     n_chunks: int
@@ -373,9 +266,6 @@ class PrefillTask:
     sync_token: Optional[torch.cuda.Event] = None
     # the Execution Pool's id of the task, which its `segment` spans name
     task_id: Optional[int] = None
-    # its per-token operators run over the executor's static buffers (from
-    # graphs on the card); else every operator runs eagerly on `state`
-    static: bool = False
 
     @property
     def done(self) -> bool:
@@ -407,16 +297,15 @@ class SegmentedPrefill:
         self.cache_dtype = cache_dtype
         self.ops = op_names(cfg)
         # each layer's operators: the same number at every layer, so a
-        # group is the same slots of each layer's set
+        # segment runs the same slots of each layer's set
         self._layer_ops = layer_op_names(cfg)
         self._mla = is_mla(cfg)
-        op_fns = _make_op_fns(cfg)
 
         slots = tuple(range(len(self.ops)))
         if granularity == "op":
-            groups: List[Tuple[int, ...]] = [(i,) for i in slots]
+            segs: List[Tuple[int, ...]] = [(i,) for i in slots]
         elif granularity in ("layer", "whole") or granularity.startswith("block"):
-            groups = [slots]
+            segs = [slots]
         else:
             raise ValueError(granularity)
 
@@ -426,43 +315,37 @@ class SegmentedPrefill:
         elif granularity == "whole":
             self._block_layers = cfg.num_layers
 
-        layer_ops = self._layer_ops
-
-        def make_segment(group, n_layers):
-            def seg(params, st, l0, off):
-                for l in range(l0, min(l0 + n_layers, cfg.num_layers)):
-                    for i in group:
-                        st = op_fns[layer_ops[l][i]](params, st, l, off)
-                return st
-            return seg
-
-        self._segments = [make_segment(g, self._block_layers) for g in groups]
-        # the slots of each layer's operators each group runs
-        self._groups = groups
+        # the slots of each layer's operators each segment of a block runs
+        self._segments = segs
         self._segments_per_chunk = (
             (cfg.num_layers + self._block_layers - 1) // self._block_layers
             * len(self._segments))
-        self._buf: Optional[Dict[str, torch.Tensor]] = None
+        self._fns = _make_op_fns(cfg)
+        # the buffers at the largest bucket (8 chunks, for batched rows; the
+        # whole prompt where there is no chunking)
+        self._buckets = token_buckets(8 * chunk_tokens or max_seq)
+        self._buf = self._buffers(self._buckets[-1])
+        # the task whose live tensors the buffers hold, and the stream and
+        # event of the buffers' last step
+        self._resident: Optional[weakref.ref] = None
+        self._last: Optional[Tuple[torch.cuda.Stream, torch.cuda.Event]] = None
+        self._lock = threading.Lock()
+        self._graphs: Dict[Tuple[int, str, int], Callable[[], None]] = {}
         if _graphable(self.device):
-            self._init_graphs()
+            self._capture_graphs()
 
-    # --- static buffers and graphs ---------------------------------------------
-    def _init_graphs(self) -> None:
-        """The static buffers at the largest bucket (8 chunks, for batched
-        rows; the whole prompt where there is no chunking) and the graphs of
-        every bucket, captured before any task runs. Each operator runs once
-        eagerly at each bucket on the capture stream first, which sets up
-        the cuBLAS handle and workspace of this thread and stream and loads
-        the bucket's kernels outside the capture."""
-        cfg, layers = self.cfg, self.params["layers"]
+    # --- buffers and graphs ----------------------------------------------------
+    def _buffers(self, rows: int) -> Dict[str, torch.Tensor]:
+        """The (rows, width) buffers a chunk's operators read and write: the
+        hidden state `h`, the chunk's RoPE tables, q, the two cache rows
+        (k/v; a latent stack's c_kv/k_pe), attn's output `o`, and the
+        routing (`x`, `w`, `idx`) or the gated product `gu`."""
+        cfg = self.cfg
         K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
-        self._buckets = token_buckets(8 * self.chunk_tokens or self.max_seq)
-        rows = self._buckets[-1]
         act = self.params["embed"].dtype
 
         def zeros(width, dtype=act):
             return torch.zeros((rows, width), dtype=dtype, device=self.device)
-        # q, the two cache rows (k/v; the latent c_kv/k_pe) and attn's output
         widths = (H * cfg.qk_head_dim, cfg.kv_lora_rank,
                   cfg.qk_rope_head_dim, H * cfg.v_head_dim) if self._mla \
             else (H * hd, K * hd, K * hd, H * hd)
@@ -470,62 +353,62 @@ class SegmentedPrefill:
         buf = {"h": zeros(cfg.d_model), "cos": zeros(half, torch.float32),
                "sin": zeros(half, torch.float32)}
         buf.update(zip(("q", "k", "v", "o"), map(zeros, widths)))
-        # every operator some layer runs, in the order of a layer's set
-        names = list(dict.fromkeys(n for ops in self._layer_ops
-                                   for n in ops))
+        names = {n for ops in self._layer_ops for n in ops}
         if "gate" in names:
             k = cfg.experts_per_token
             buf.update(x=zeros(cfg.d_model), w=zeros(k, torch.float32),
                        idx=zeros(k, torch.int64))
         if "gate_up_proj" in names:
-            buf["gu"] = zeros(layers["wi_dense" if self._mla
-                                     else "wi"].shape[-1])
-        self._buf = buf
-        # the task whose live tensors the buffers hold, and the stream and
-        # event of the buffers' last step
-        self._resident: Optional[weakref.ref] = None
-        self._last: Optional[Tuple[torch.cuda.Stream, torch.cuda.Event]] = None
-        self._lock = threading.Lock()
+            buf["gu"] = zeros(self.params["layers"][
+                "wi_dense" if self._mla else "wi"].shape[-1])
+        return buf
+
+    def _capture_graphs(self) -> None:
+        """The graphs of every per-token operator at every layer and bucket,
+        captured before any task runs. Each operator runs once at each
+        bucket on the capture stream first, which sets up the cuBLAS handle
+        and workspace of this thread and stream and loads the bucket's
+        kernels outside the capture."""
         cuda = self.device.type == "cuda"
         stream = torch.cuda.Stream(self.device) if cuda else None
         pool = torch.cuda.graph_pool_handle() if cuda else None
         if stream is not None:                  # the buffers' zeros first
             stream.wait_stream(torch.cuda.current_stream(self.device))
-        fns = _make_graphed_fns(cfg)
-        self._graphs: Dict[Tuple[int, str, int], Callable[[], None]] = {}
+        # every per-token operator some layer runs, in a layer's order
+        names = [n for n in dict.fromkeys(n for ops in self._layer_ops
+                                          for n in ops) if n in GRAPHED_OPS]
         for b in self._buckets:
             for name in names:
-                if name not in GRAPHED_OPS:
-                    continue
                 at = [l for l, ops in enumerate(self._layer_ops)
                       if name in ops]
                 with on_stream(stream):
-                    fns[name](layer_params(self.params, at[0]), buf, b)
+                    self._fns[name](layer_params(self.params, at[0]),
+                                    self._buf, b)
                 if stream is not None:
                     stream.synchronize()
                 for l in at:
                     self._graphs[l, name, b] = _capture(functools.partial(
-                        fns[name], layer_params(self.params, l), buf, b),
-                        stream, pool)
+                        self._fns[name], layer_params(self.params, l),
+                        self._buf, b), stream, pool)
                     counts.bump("segment_graph_capture")
 
     def _live(self, task: PrefillTask) -> Tuple[int, Tuple[str, ...]]:
-        """The rows and the names of the static buffers `task` holds live
-        before its next segment: none at a chunk's start."""
+        """The rows and the names of the buffers `task` holds live before
+        its next segment: none at a chunk's start."""
         chunk_idx, within = divmod(task.cursor, self._segments_per_chunk)
         if within == 0 or task.done:
             return 0, ()
         lo, hi = self._chunk_bounds(task, chunk_idx)
-        block, group_idx = divmod(within, len(self._segments))
+        block, seg = divmod(within, len(self._segments))
         nxt = self._layer_ops[block * self._block_layers][
-            self._groups[group_idx][0]]
+            self._segments[seg][0]]
         return (task.state["tokens"].shape[0] * (hi - lo),
                 ("h", "cos", "sin") + _LIVE.get(nxt, ()))
 
     def _claim(self, task: PrefillTask) -> None:
-        """Make the static buffers `task`'s: after the buffers' last step
-        where that ran on another stream, spill the resident task's live
-        tensors into its state, and load `task`'s."""
+        """Make the executor's buffers `task`'s: after the buffers' last
+        step where that ran on another stream, spill the resident task's
+        live tensors into its state, and load `task`'s."""
         stream = torch.cuda.current_stream(self.device) \
             if self.device.type == "cuda" else None
         if self._last is not None and self._last[0] != stream:
@@ -544,31 +427,35 @@ class SegmentedPrefill:
                 t.record_stream(stream)
         self._resident = weakref.ref(task)
 
+    def _buf_of(self, task: PrefillTask) -> Dict[str, torch.Tensor]:
+        """The buffers `task`'s operators run over: its own, else the
+        executor's."""
+        return task.state.get("buf", self._buf)
+
     def _attn(self, task: PrefillTask, l: int, off: int, B: int, Sc: int):
-        """`attn` over the static buffers: the chunk's k/v into the task's
-        cache, then the kernel writing the buffer `o_proj` reads."""
-        cfg, buf, n = self.cfg, self._buf, B * Sc
-        K, hd, H = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_heads
-        kc, vc = task.state["k_cache"], task.state["v_cache"]
+        """`attn` over the buffers: the chunk's k/v (a latent stack's
+        c_kv/k_pe) into the task's cache, then the prefill kernel writing
+        the buffer `o_proj` reads. A latent stack first up-projects the
+        cache's rows [0, off + Sc) to per-head keys and values."""
+        cfg, buf, n, T = self.cfg, self._buf_of(task), B * Sc, off + Sc
+        kc, vc = task.state["k_cache"][l], task.state["v_cache"][l]
+        kc[:, off:T] = buf["k"][:n].view(B, Sc, *kc.shape[2:])
+        vc[:, off:T] = buf["v"][:n].view(B, Sc, *vc.shape[2:])
+        k, v = kc, vc
         if self._mla:
-            kc[l, :, off:off + Sc, 0] = buf["k"][:n].view(B, Sc, -1)
-            vc[l, :, off:off + Sc, 0] = buf["v"][:n].view(B, Sc, -1)
-            _mla_attention(
-                cfg, layer_params(self.params, l),
-                buf["q"][:n].view(B, Sc, H, -1), kc[l], vc[l], off, Sc,
-                out=buf["o"][:n].view(B, Sc, H, cfg.v_head_dim))
-            return
-        kc[l, :, off:off + Sc] = buf["k"][:n].view(B, Sc, K, hd)
-        vc[l, :, off:off + Sc] = buf["v"][:n].view(B, Sc, K, hd)
+            k, v = mla_expand(cfg, layer_params(self.params, l),
+                              kc[:, :T, 0], vc[:, :T, 0])
+            counts.bump("mla_kv_rows", B * T)
+        H = cfg.num_heads
         kops.prefill_attention(
-            buf["q"][:n].view(B, Sc, H, hd), kc[l], vc[l], q_offset=off,
-            kv_len=off + Sc, causal=True, local_window=cfg.local_window,
-            out=buf["o"][:n].view(B, Sc, H, hd))
+            buf["q"][:n].view(B, Sc, H, -1), k, v, q_offset=off, kv_len=T,
+            causal=True, local_window=cfg.local_window,
+            out=buf["o"][:n].view(B, Sc, H, -1))
 
     def _experts(self, task: PrefillTask, l: int, off: int, B: int, Sc: int):
-        """`experts` over the static buffers, on the chunk's B * Sc tokens,
-        added into h in place (on the card by the kernel's combine)."""
-        cfg, buf, n = self.cfg, self._buf, B * Sc
+        """`experts` over the buffers, on the chunk's B * Sc tokens, added
+        into h in place (on the card by the kernel's combine)."""
+        cfg, buf, n = self.cfg, self._buf_of(task), B * Sc
         p = layer_params(self.params, l)
         L.moe_apply(buf["x"][:n].view(B, Sc, -1),
                     buf["w"][:n].view(B, Sc, -1),
@@ -577,16 +464,19 @@ class SegmentedPrefill:
                     capacity_factor=cfg.moe_capacity_factor,
                     min_capacity=cfg.moe_min_capacity, residual=buf["h"][:n])
 
-    def _step_static(self, task: PrefillTask, chunk_idx: int, within: int,
-                     group_idx: int, l0: int) -> bool:
-        """One segment over the static buffers; True where it replayed
+    def _run(self, task: PrefillTask, chunk_idx: int, within: int,
+             seg: int, l0: int) -> bool:
+        """One segment over the task's buffers; True where it replayed
         graphs."""
-        cfg, buf, st = self.cfg, self._buf, task.state
+        cfg, st = self.cfg, task.state
         lo, hi = self._chunk_bounds(task, chunk_idx)
         B, Sc = st["tokens"].shape[0], hi - lo
         n = B * Sc
-        bucket = next(b for b in self._buckets if b >= n)
-        self._claim(task)
+        buf, bucket = st.get("buf"), None       # its own buffers: no graphs
+        if buf is None:
+            buf = self._buf
+            self._claim(task)
+            bucket = next(b for b in self._buckets if b >= n)
         if within == 0:                                     # chunk begins
             h = embed_tokens(cfg, self.params, st["tokens"][:, lo:hi])
             if chunk_idx == 0 and "vision_embeds" in st:
@@ -599,20 +489,22 @@ class SegmentedPrefill:
             buf["sin"][:n].view(B, Sc, -1).copy_(sin)
         graphed = False
         for l in range(l0, min(l0 + self._block_layers, cfg.num_layers)):
-            for i in self._groups[group_idx]:
+            for i in self._segments[seg]:
                 name = self._layer_ops[l][i]
                 if name == "attn":
                     self._attn(task, l, lo, B, Sc)
                 elif name == "experts":
                     self._experts(task, l, lo, B, Sc)
-                else:
+                elif (l, name, bucket) in self._graphs:
                     self._graphs[l, name, bucket]()
                     graphed = True
+                else:
+                    self._fns[name](layer_params(self.params, l), buf, n)
         if within == self._segments_per_chunk - 1:          # chunk ends
             st["h_full"][:, lo:hi] = buf["h"][:n].view(B, Sc, -1).to(
                 st["h_full"].dtype)
         task.sync_token = mark(self.device)
-        if task.sync_token is not None:
+        if task.sync_token is not None and buf is self._buf:
             self._last = (torch.cuda.current_stream(self.device),
                           task.sync_token)
         return graphed
@@ -634,7 +526,8 @@ class SegmentedPrefill:
         """Begin a prefill of `tokens` (B, S), padded rows of true lengths
         `lens` (default S each). Allocates the task's (L, B, max_seq, K, hd)
         KV cache (a latent-attention stack's latent, `cache_shapes`) on the
-        current stream.
+        current stream, and where a chunk's B * Sc tokens exceed the largest
+        bucket, buffers of the task's own at that row count.
 
         ``prefix_len > 0`` resumes over a cached prompt prefix: `prefix_k` /
         `prefix_v` (L, B, prefix_len, K, hd) seed the first positions of the
@@ -673,8 +566,6 @@ class SegmentedPrefill:
             "tokens": tokens,
             # host ints: the head and the KV handoff index rows with them
             "lens": [S] * B if lens is None else [int(n) for n in lens],
-            "h": None,                    # set per chunk
-            "tmp": None,
             "k_cache": kc,
             "v_cache": vc,
             "h_full": torch.zeros((B, S, cfgc.d_model), dtype=torch.float32,
@@ -682,12 +573,13 @@ class SegmentedPrefill:
         }
         if vision_embeds is not None:
             state["vision_embeds"] = vision_embeds
+        rows = B * min(chunk, S - prefix_len)
+        if rows > self._buckets[-1]:
+            state["buf"] = self._buffers(rows)
         return PrefillTask(
             state=state, prompt_len=S, start_offset=prefix_len,
             n_chunks=self.n_chunks(S, prefix_len), chunk=chunk,
-            total_segments=self.segments_for(S, prefix_len),
-            static=self._buf is not None
-            and B * min(chunk, S - prefix_len) <= self._buckets[-1])
+            total_segments=self.segments_for(S, prefix_len))
 
     def _chunk_bounds(self, task: PrefillTask, chunk_idx: int) -> Tuple[int, int]:
         lo = task.start_offset + chunk_idx * task.chunk
@@ -711,7 +603,6 @@ class SegmentedPrefill:
         if tr:
             t0 = time.monotonic()
         seg_idx = task.cursor
-        spc = self._segments_per_chunk
         if seg_idx == task.total_segments - 1:              # lm_head
             task.logits = self._head(task.state["h_full"], task.state["lens"])
             task.sync_token = mark(self.device)
@@ -723,39 +614,21 @@ class SegmentedPrefill:
                                chunk=None, graphed=False)
             return True
 
-        chunk_idx, within = divmod(seg_idx, spc)
-        layer_block, group_idx = divmod(within, len(self._segments))
+        chunk_idx, within = divmod(seg_idx, self._segments_per_chunk)
+        layer_block, seg = divmod(within, len(self._segments))
         l0 = layer_block * self._block_layers
-
-        if task.static:
-            # the cursor moves under the lock too: the next claim reads
-            # from it what this task holds live in the buffers
-            with self._lock:
-                graphed = self._step_static(task, chunk_idx, within,
-                                            group_idx, l0)
-                task.cursor += 1
-        else:
-            graphed = False
-            lo, hi = self._chunk_bounds(task, chunk_idx)
-            st = task.state
-            if within == 0:                                 # chunk begins
-                h = embed_tokens(self.cfg, self.params, st["tokens"][:, lo:hi])
-                if chunk_idx == 0 and "vision_embeds" in st:
-                    h = _merge_vision(h, st["vision_embeds"])
-                st = dict(st, h=h)
-            st = self._segments[group_idx](self.params, st, l0, lo)
-            if within == spc - 1:                           # chunk ends
-                st["h_full"][:, lo:hi] = st["h"].to(st["h_full"].dtype)
-            task.state = st
-            task.sync_token = mark(self.device)
+        # the cursor moves under the lock too: the next claim reads from it
+        # what this task holds live in the executor's buffers
+        with self._lock:
+            graphed = self._run(task, chunk_idx, within, seg, l0)
             task.cursor += 1
         counts.bump("segment_graph_replay" if graphed else "segment_eager")
         if tr:
-            # an operator's name, or the granularity where one group runs
+            # an operator's name, or the granularity where one segment runs
             # every operator of its layers
-            op = self._layer_ops[l0][self._groups[group_idx][0]] \
+            op = self._layer_ops[l0][self._segments[seg][0]] \
                 if self.granularity == "op" else self.granularity
-            rows = self._latent_rows(task, chunk_idx, group_idx, l0) \
+            rows = self._latent_rows(task, chunk_idx, seg, l0) \
                 if self._mla else {}
             tracing.record("segment", t0, time.monotonic(), cause=task.task_id,
                            op=op, layer=l0, chunk=chunk_idx, graphed=graphed,
@@ -763,12 +636,12 @@ class SegmentedPrefill:
         return task.done
 
     def _latent_rows(self, task: PrefillTask, chunk_idx: int,
-                     group_idx: int, l0: int) -> Dict[str, int]:
+                     seg: int, l0: int) -> Dict[str, int]:
         """A latent-attention step's span rows: the latent rows its `attn`
         operators up-projected and their query rows (none without one)."""
         n_attn = sum(self._layer_ops[l][i] == "attn" for l in range(
             l0, min(l0 + self._block_layers, self.cfg.num_layers))
-            for i in self._groups[group_idx])
+            for i in self._segments[seg])
         if not n_attn:
             return {}
         lo, hi = self._chunk_bounds(task, chunk_idx)

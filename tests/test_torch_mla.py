@@ -25,7 +25,6 @@ from repro_torch.kernels import counts, ref
 from repro_torch.models import layers as L
 from repro_torch.models import mla_reference as R
 from repro_torch.models import model as M
-from repro_torch.models import segments
 from repro_torch.models.segments import (DENSE_OPS, MOE_OPS, SegmentedPrefill,
                                          layer_op_names)
 from repro_torch.params import ModelParams
@@ -169,26 +168,27 @@ def _run(ex, tokens, other=None, at=()):
 
 
 @pytest.mark.parametrize("granularity", ["op", "layer", "block2"])
-@pytest.mark.parametrize("graphed", [False, True])
+# 1 row of 8 tokens a chunk, within the largest bucket (64), over the
+# executor's buffers; 9 rows, 72 tokens a chunk, over buffers of the task's
+# own
+@pytest.mark.parametrize("rows", [1, 9])
 def test_segmented_prefill_chunks_preempts_and_hands_off_the_latent(
-        model, monkeypatch, granularity, graphed):
+        model, granularity, rows):
     params, toks, want, cache = model
-    if graphed:       # the static-buffer path, each graph its operator
-        monkeypatch.setattr(segments, "_graphable", lambda device: True)
-        monkeypatch.setattr(segments, "_capture",
-                            lambda fn, stream, pool: fn)
     ex = SegmentedPrefill(params, CFG, max_seq=64, granularity=granularity,
                           chunk_tokens=8)
     S = 30
     mid = ex.segments_for(S) // 2          # inside chunk 1 or 2
-    task = _run(ex, toks[None, :S], toks[None, :11], at=(3, mid))
-    assert task.static == graphed
-    torch.testing.assert_close(task.logits[0], want[S - 1], **TOL)
-    for l, (c_kv, k_pe) in enumerate(cache):
-        torch.testing.assert_close(task.state["k_cache"][l, 0, :S, 0],
-                                   c_kv[:S], **TOL)
-        torch.testing.assert_close(task.state["v_cache"][l, 0, :S, 0],
-                                   k_pe[:S], **TOL)
+    task = _run(ex, toks[None, :S].expand(rows, -1), toks[None, :11],
+                at=(3, mid))
+    assert ("buf" in task.state) == (rows * 8 > ex._buckets[-1])
+    for b in range(rows):
+        torch.testing.assert_close(task.logits[b], want[S - 1], **TOL)
+        for l, (c_kv, k_pe) in enumerate(cache):
+            torch.testing.assert_close(task.state["k_cache"][l, b, :S, 0],
+                                       c_kv[:S], **TOL)
+            torch.testing.assert_close(task.state["v_cache"][l, b, :S, 0],
+                                       k_pe[:S], **TOL)
 
 
 def test_operator_set_per_layer_and_span_rows(model):

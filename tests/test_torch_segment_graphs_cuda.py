@@ -1,7 +1,8 @@
 """`SegmentedPrefill`'s per-token operators replayed from CUDA graphs on the
-card, against the same executor's eager path (the module's `_graphable`
-made to answer False while it is built). This file imports no JAX; each
-test skips without a card inside its fixture:
+card, against the same operators called uncaptured over the same buffers
+(the module's `_graphable` made to answer False while the executor is
+built). This file imports no JAX; each test skips without a card inside
+its fixture:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_segment_graphs_cuda.py -q
 
@@ -43,7 +44,7 @@ def _params(arch, card, dtype):
     return cfg, p.to(card).to(dtype)
 
 
-def _eager(monkeypatch, *args, **kw):
+def _uncaptured(monkeypatch, *args, **kw):
     with monkeypatch.context() as m:
         m.setattr(segments, "_graphable", lambda device: False)
         return SegmentedPrefill(*args, **kw)
@@ -67,15 +68,15 @@ def test_graphed_matches_eager_on_the_card(card, monkeypatch, arch, dtype,
                                            B, S):
     cfg, params = _params(arch, card, dtype)
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
-    plain = _eager(monkeypatch, params, cfg, max_seq=64, chunk_tokens=32,
-                   cache_dtype=dtype)
+    plain = _uncaptured(monkeypatch, params, cfg, max_seq=64,
+                        chunk_tokens=32, cache_dtype=dtype)
     want_task = plain.start(toks)
     want = plain.run_all(want_task)
     counts.reset()
     ex = SegmentedPrefill(params, cfg, max_seq=64, chunk_tokens=32,
                           cache_dtype=dtype)
     task = ex.start(toks)
-    assert task.static and not want_task.static
+    assert ex._graphs and not plain._graphs
     got = ex.run_all(task)
     torch.cuda.synchronize()
     _close(got, want, dtype)
